@@ -1,0 +1,330 @@
+#!/usr/bin/env python3
+"""GPU smoke run of libjxl_tpu_torch, the PyTorch/CUDA port.
+
+    python3 chip_smoke.py
+
+Needs one CUDA card, nvcc (on PATH or in CUDA_HOME, default
+/usr/local/cuda) and a C compiler; no network and no JAX. It
+
+1. builds the port's CUDA kernels from libjxl_tpu_torch/ops/csrc;
+2. encodes distinct streams on the host (a process pool): 32 photo-like
+   2048x2048 at d1/e3 with the encoder's default EPF (2 passes), 4 at
+   2048x2048 with epf=3 (the 12-neighbour pass), 2 at 1021x765 (the
+   true-size mirror); each is also decoded by the host reference;
+3. holds each kernel against its plain torch twin on the card, on the
+   first 16-stream batch's staged inputs, and times both;
+4. drives the serving decode: decode_pipelined over the 32 streams
+   (batch 16) with the launch counters reset just before, then
+   decode_batch per batch of 16 and on the epf=3 and 1021x765 sets;
+5. checks every image against the host decode (at most 1 u8 step),
+   the pipelined output against the batched output (exactly), and the
+   launch counts (dequant_idct8 once a batch, epf_pass epf_iters times).
+
+It prints the phase seconds, the rates (render-only, pipelined
+end-to-end and host-entropy MP/s) with the card's name, a JSON line of
+the kernels, the card's nvidia-smi name and power limit, and last
+{"ok": true, "device": {...}}. Any failure raises and exits non-zero;
+so does a machine without CUDA.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+BATCH = 16
+SIZE = 2048
+ODD_SIZE = (765, 1021)  # (height, width), not multiples of 8
+U8_BOUND = 1  # u8 steps from the host decode (tests/test_decode_batch.py)
+K1_TOL = dict(rtol=1e-5, atol=1e-5)
+K2_TOL = dict(rtol=2e-4, atol=2e-5)  # sum order differs (test_pallas.py)
+
+
+def make_image(h, w, seed):
+    """Smooth photo-like content plus mild noise (the JAX bench's
+    generator, generalised to h x w)."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = (120 + 60 * np.sin(xx * 0.003) + 50 * np.cos(yy * 0.002 + 1)
+           + 20 * np.sin((xx + yy) * 0.01) + rng.normal(0, 5, (h, w)))
+    rgb = np.stack([img, img * 0.9 + 10, img * 1.1 - 12], axis=-1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def encode_and_reference(job):
+    """Pool worker: (h, w, seed, epf) -> (stream, host-decoded u8 RGB)."""
+    from libjxl_tpu.api import codestream
+
+    h, w, seed, epf = job
+    stream = codestream.encode_lossy(make_image(h, w, seed), distance=1.0,
+                                     effort=3, device=False, epf=epf)
+    ref = codestream.decode(stream, device=False)[0][:, :, :3]
+    return stream, np.ascontiguousarray(ref)
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def check(cond, what):
+    if not cond:
+        raise RuntimeError(f"chip_smoke: {what}")
+
+
+def nvidia_smi_line():
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return res.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, reps):
+    """Mean device milliseconds of fn() over `reps` runs after one warm-up
+    (CUDA events; every input here exceeds the 50 MB L2)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def max_err(got, ref):
+    return float((got - ref).abs().max().item())
+
+
+def check_kernels(renderer, inputs, config):
+    """Each kernel against its plain twin on the batch's staged inputs;
+    returns the JSON records (launches filled in later)."""
+    import torch
+
+    from libjxl_tpu_torch.ops import kernels, pipeline
+
+    qimg, qf, dc, ytox, ytob, igs, isp = inputs
+    k1_args = (qf, dc, ytox, ytob, renderer.dm, igs, config.x_dm_mult,
+               config.b_dm_mult)
+    k1_err = 0.0
+    for q in (qimg, qimg.to(torch.int32)):
+        got = kernels.dequant_idct8(q, *k1_args)
+        ref = pipeline.decode_xyb_image(q, *k1_args)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        check(torch.allclose(got, ref, **K1_TOL),
+              f"dequant_idct8 ({q.dtype}) disagrees with decode_xyb_image: "
+              f"max abs err {err}")
+        log(f"check dequant_idct8 qimg {q.dtype}: max abs err {err}")
+        k1_err = max(k1_err, err)
+        del got, ref
+    k1_ms = cuda_ms(lambda: kernels.dequant_idct8(qimg, *k1_args), 10)
+    k1_plain = cuda_ms(lambda: pipeline.decode_xyb_image(qimg, *k1_args), 3)
+
+    xyb = pipeline.gaborish(kernels.dequant_idct8(qimg, *k1_args),
+                            renderer.gab_kernels)
+    h, w = xyb.shape[-2:]
+    isp_px = pipeline._repeat2(isp, 8)[..., :h, :w]
+    geometries = (
+        ("pass0", pipeline._EPF0_NEIGHBORS, pipeline._EPF_PLUS,
+         config.pass0_sigma_scale),
+        ("pass1", pipeline._EPF12_NEIGHBORS, pipeline._EPF_PLUS, 1.0),
+        ("pass2", pipeline._EPF12_NEIGHBORS, None,
+         config.pass2_sigma_scale))
+    k2_err, by_geometry = 0.0, {}
+    for name, neigh, pattern, scale in geometries:
+        args = (renderer.sad_mul, config.channel_scale, neigh, pattern, scale)
+        got = kernels.epf_pass(xyb, isp, *args)
+        ref = pipeline._epf_pass(xyb, isp_px, *args)
+        torch.cuda.synchronize()
+        err = max_err(got, ref)
+        check(torch.allclose(got, ref, **K2_TOL),
+              f"epf_pass {name} disagrees with _epf_pass: max abs err {err}")
+        del got, ref
+        ms = cuda_ms(lambda: kernels.epf_pass(xyb, isp, *args), 10)
+        plain = cuda_ms(lambda: pipeline._epf_pass(xyb, isp_px, *args), 3)
+        log(f"check epf_pass {name}: max abs err {err}; {ms:.4f} ms vs "
+            f"plain {plain:.4f} ms")
+        k2_err = max(k2_err, err)
+        by_geometry[name] = {"ms": ms, "plain_ms": plain, "max_abs_err": err}
+    shape = tuple(qimg.shape)
+    log(f"kernel times at B={shape[0]}, {shape[2]}x{shape[3]}: "
+        f"dequant_idct8 {k1_ms:.4f} ms (plain {k1_plain:.4f} ms)")
+    # the 2-pass main path runs pass1 then pass2; pass1 stands for the
+    # kernel in the JSON line, with every geometry beside it
+    return [
+        {"name": "dequant_idct8", "route": "cuda",
+         "source": "libjxl_tpu_torch/ops/csrc/dequant_idct8.cu",
+         "replaces": "libjxl_tpu/ops/pallas_kernels.py:60",
+         "launches": 0, "max_abs_err": k1_err, "ms": k1_ms,
+         "plain_ms": k1_plain},
+        {"name": "epf_pass", "route": "cuda",
+         "source": "libjxl_tpu_torch/ops/csrc/epf.cu",
+         "replaces": "libjxl_tpu/ops/pallas_kernels.py:168",
+         "launches": 0, "max_abs_err": k2_err,
+         "ms": by_geometry["pass1"]["ms"],
+         "plain_ms": by_geometry["pass1"]["plain_ms"],
+         "by_geometry": by_geometry},
+    ]
+
+
+def counted(fn, *args, **kw):
+    """fn(*args, **kw) and the launches it made, per kernel."""
+    from libjxl_tpu_torch.base.device import launch_counts
+
+    before = launch_counts()
+    out = fn(*args, **kw)
+    after = launch_counts()
+    return out, {k: after[k] - before.get(k, 0) for k in after}
+
+
+def check_images(outs, refs, label):
+    worst = 0
+    for out, ref in zip(outs, refs):
+        check(out.shape == ref.shape,
+              f"{label}: shape {out.shape} != host {ref.shape}")
+        worst = max(worst, int(np.abs(out.astype(np.int16)
+                                      - ref.astype(np.int16)).max()))
+    check(worst <= U8_BOUND,
+          f"{label}: {worst} u8 steps from the host decode")
+    log(f"{label}: {len(outs)} images, max {worst} u8 step(s) from host "
+        "decode")
+
+
+def main():
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: CUDA is not available; this run needs a GPU",
+              file=sys.stderr)
+        return 1
+    from libjxl_tpu import native_ext
+    from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.base.device import (launch_counts,
+                                              reset_launch_counts,
+                                              resolve_device)
+    from libjxl_tpu_torch.ops import build
+
+    t_start = time.perf_counter()
+    dev = resolve_device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    smi = nvidia_smi_line()
+    log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
+    check(native_ext.get_lib() is not None,
+          "the native host library did not build: host entropy would run "
+          "in pure Python")
+
+    t = time.perf_counter()
+    so = build.build()
+    build.load()
+    log(f"phase build: {time.perf_counter() - t:.2f} s ({so.name})")
+    for line in so.with_suffix(".log").read_text().splitlines():
+        if "registers" in line or "spill" in line:
+            log(f"  ptxas: {line.strip()}")
+
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
+    jobs = ([(SIZE, SIZE, 100 + i, None) for i in range(2 * BATCH)]
+            + [(SIZE, SIZE, 200 + i, 3) for i in range(4)]
+            + [(*ODD_SIZE, 300 + i, None) for i in range(2)])
+    t = time.perf_counter()
+    workers = min(len(jobs), os.cpu_count() or 1)
+    # a worker that dies raises BrokenProcessPool here instead of hanging
+    with cf.ProcessPoolExecutor(workers,
+                                mp_context=mp.get_context("spawn")) as ex:
+        done = list(ex.map(encode_and_reference, jobs))
+    log(f"phase encode+host-decode: {time.perf_counter() - t:.2f} s "
+        f"({len(jobs)} streams, {workers} processes)")
+    streams = [s for s, _ in done]
+    refs = [r for _, r in done]
+    check(len(set(streams)) == len(streams), "streams are not distinct")
+    main_s, main_r = streams[:2 * BATCH], refs[:2 * BATCH]
+    epf3_s, epf3_r = streams[2 * BATCH:2 * BATCH + 4], \
+        refs[2 * BATCH:2 * BATCH + 4]
+    odd_s, odd_r = streams[-2:], refs[-2:]
+    mp_per_image = SIZE * SIZE / 1e6
+
+    # host entropy (+ staging) of one batch, then the kernels against
+    # their plain twins on that batch's real inputs
+    t = time.perf_counter()
+    config, args = tpu_codec.prepare_batch(main_s[:BATCH])
+    t_host = time.perf_counter() - t
+    check(config.epf_iters == 2 and config.gab,
+          f"default encode should signal Gaborish + 2 EPF passes: {config}")
+    renderer, inputs = tpu_codec.batch_from_numpy(args, config, dev)
+    records = check_kernels(renderer, inputs, config)
+
+    def render_once():
+        return renderer(*inputs)
+
+    with torch.inference_mode():
+        render_ms = cuda_ms(render_once, 5)
+        torch.cuda.reset_peak_memory_stats()
+        render_once()
+        torch.cuda.synchronize()
+        peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    del renderer, inputs, args
+
+    # the main path, counted
+    reset_launch_counts()
+    t = time.perf_counter()
+    piped = tpu_codec.decode_pipelined(main_s, dev, batch_size=BATCH)
+    t_pipe = time.perf_counter() - t
+    launches = launch_counts()
+    batches = len(main_s) // BATCH
+    check(launches == {"dequant_idct8": batches,
+                       "epf_pass": batches * config.epf_iters},
+          f"main path launches {launches}")
+    for rec in records:
+        rec["launches"] = launches[rec["name"]]
+    check_images(piped, main_r, "decode_pipelined 2048x2048 d1/e3")
+
+    for start in range(0, len(main_s), BATCH):
+        outs, n = counted(tpu_codec.decode_batch, main_s[start:start + BATCH],
+                          dev)
+        check(n == {"dequant_idct8": 1, "epf_pass": config.epf_iters},
+              f"decode_batch launches {n}")
+        for a, b in zip(outs, piped[start:start + BATCH]):
+            check(np.array_equal(a, b), "pipelined output differs from "
+                  "the batched output")
+    log("decode_batch per batch of 16 == decode_pipelined, exactly")
+
+    outs, n = counted(tpu_codec.decode_batch, epf3_s, dev)
+    check(n == {"dequant_idct8": 1, "epf_pass": 3},
+          f"epf=3 decode_batch launches {n}")
+    check_images(outs, epf3_r, "decode_batch 2048x2048 epf=3")
+    outs, n = counted(tpu_codec.decode_batch, odd_s, dev)
+    check(n == {"dequant_idct8": 1, "epf_pass": 2},
+          f"1021x765 decode_batch launches {n}")
+    check_images(outs, odd_r, "decode_batch 1021x765 (true-size mirror)")
+
+    check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
+          "JAX was imported")
+    render_mp_s = BATCH * mp_per_image / (render_ms / 1e3)
+    pipe_mp_s = len(main_s) * mp_per_image / t_pipe
+    host_mp_s = BATCH * mp_per_image / t_host
+    log(f"phase render-only (B={BATCH}, {SIZE}x{SIZE}, device-resident "
+        f"inputs): {render_ms:.3f} ms, {render_mp_s:.2f} MP/s on {kind}; "
+        f"peak device memory {peak_gb:.2f} GB")
+    log(f"phase pipelined end-to-end ({len(main_s)} streams, batch "
+        f"{BATCH}): {t_pipe:.3f} s, {pipe_mp_s:.2f} MP/s on {kind}")
+    log(f"phase host entropy + staging ({BATCH} streams): {t_host:.3f} s, "
+        f"{host_mp_s:.2f} MP/s on the host of {kind}")
+    log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"kernels": records}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

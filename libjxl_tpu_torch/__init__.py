@@ -1,0 +1,15 @@
+"""libjxl_tpu_torch — the PyTorch/CUDA port of libjxl_tpu's device paths.
+
+The JAX package `libjxl_tpu` stays the reference. This package keeps its
+module paths and function names (minus the `_jax` suffix) and reuses
+its host layers (bit I/O, headers, entropy decode, the host render
+helpers) by import. It imports `torch` and never `jax`.
+
+  base/device.py      device choice, precision policy, launch counters
+  ops/pipeline.py     plain torch decode stages (the kernels' twins)
+  ops/kernels.py      wrappers of the hand-written CUDA kernels
+  ops/build.py        nvcc build of ops/csrc/*.cu, loaded with ctypes
+  api/tpu_codec.py    batched VarDCT serving decode
+"""
+
+__version__ = "0.1.0"

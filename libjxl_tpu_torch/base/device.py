@@ -1,0 +1,78 @@
+"""Device choice, precision policy and kernel launch counters.
+
+Device: every entry point takes an explicit device and resolves it here.
+Asking for CUDA without a card raises; nothing falls back to the CPU.
+
+Precision: fp32 throughout, with TF32 off for matmuls and cuDNN. This is
+the counterpart of the JAX package's `Precision.HIGHEST`
+(libjxl_tpu/ops/pipeline.py:68-78, docs/architecture.md "Precision
+policy"): the conformance error bounds do not survive TF32's 10-bit
+mantissa.
+
+Launch counters: each hand-written kernel's wrapper owns one counter and
+adds one where it launches its kernel, and nowhere else, so a run can
+show that its main path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import threading
+
+import torch
+
+
+def apply_precision_policy() -> None:
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device) -> torch.device:
+    """`device` as a torch.device, after applying the precision policy.
+
+    Raises for a CUDA device when no card is present, and for any device
+    type other than cpu and cuda."""
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(f"device {dev} requested but CUDA is not "
+                               "available")
+        if dev.index is None:
+            dev = torch.device("cuda", torch.cuda.current_device())
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    apply_precision_policy()
+    return dev
+
+
+class LaunchCounter:
+    """Number of launches of one kernel (thread-safe)."""
+
+    def __init__(self, name: str):
+        self.name = name
+        self.count = 0
+        self._lock = threading.Lock()
+
+    def add(self) -> None:
+        with self._lock:
+            self.count += 1
+
+    def reset(self) -> None:
+        with self._lock:
+            self.count = 0
+
+
+_COUNTERS: dict[str, LaunchCounter] = {}
+
+
+def launch_counter(name: str) -> LaunchCounter:
+    """The counter registered under `name` (created on first use)."""
+    return _COUNTERS.setdefault(name, LaunchCounter(name))
+
+
+def launch_counts() -> dict[str, int]:
+    return {name: c.count for name, c in _COUNTERS.items()}
+
+
+def reset_launch_counts() -> None:
+    for c in _COUNTERS.values():
+        c.reset()

@@ -1,0 +1,100 @@
+"""Build the hand-written CUDA kernels and load them with ctypes.
+
+`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
+-fPIC` compiles ops/csrc/*.cu, which expose a plain C interface, into one
+shared library under build/libjxl_tpu_torch/ at the repository root. The
+file name carries a hash of the sources and flags, so an edited source
+builds anew and an unchanged one is loaded as it is. The build runs at
+first use; importing this module needs no nvcc.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import pathlib
+import shutil
+import subprocess
+import threading
+
+_CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
+SOURCES = ("dequant_idct8.cu", "epf.cu")
+BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
+    / "libjxl_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    # qimg, q16, qf, dc, ytox, ytob, dm, igs, inv8, qbias, x_dm_mult,
+    # b_dm_mult, B, H, W, nty, ntx, out, stream, device
+    "jxl_dequant_idct8": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
+                          _I, _I, _I, _I, _I, _P, _P, _I),
+    # in, out, inv_sigma, sad_mul, pass, cs0, cs1, cs2, sigma_scale, B, H,
+    # W, stream, device
+    "jxl_epf_pass": (_P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _P,
+                     _I),
+}
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    home = pathlib.Path(os.environ.get("CUDA_HOME", "/usr/local/cuda"))
+    if (home / "bin" / "nvcc").exists():
+        return str(home / "bin" / "nvcc")
+    raise RuntimeError("nvcc not found (looked on PATH and in CUDA_HOME, "
+                       "default /usr/local/cuda): the CUDA kernels cannot "
+                       "be built")
+
+
+def library_path() -> pathlib.Path:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((_CSRC / name).read_bytes())
+    return BUILD_DIR / f"libjxl_kernels_{h.hexdigest()[:16]}.so"
+
+
+def build() -> pathlib.Path:
+    """Compile the kernels unless a library of these sources exists.
+
+    Returns its path; the compiler's report (ptxas registers, shared
+    memory, spills) is kept beside it as `<name>.log`."""
+    so = library_path()
+    if so.exists():
+        return so
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
+    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
+           *(str(_CSRC / name) for name in SOURCES)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    so.with_suffix(".log").write_text(res.stdout + res.stderr)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, so)
+    return so
+
+
+def load() -> ctypes.CDLL:
+    """The kernels' library, built on first use."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib

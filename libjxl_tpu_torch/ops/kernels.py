@@ -1,0 +1,168 @@
+"""Wrappers of the hand-written CUDA kernels, each beside its plain twin.
+
+The counterpart of libjxl_tpu/ops/pallas_kernels.py. A wrapper given a
+CPU tensor returns its plain twin from ops/pipeline.py. Given a CUDA
+tensor it launches its kernel (built from ops/csrc by ops/build.py) on
+the current stream, or raises; no path falls back. Each wrapper adds
+one to its launch counter (base/device.py) where it launches, and
+nowhere else.
+
+dequant_idct8 (ops/csrc/dequant_idct8.cu) replaces TPU kernel K1,
+  pallas_kernels.py dequant_cfl_pallas, and fuses the DC insert and
+  IDCT8 that XLA did after it. Bound by device memory (~6-12 B read,
+  12 B written a pixel); one CTA per 8x64-px block strip keeps the
+  coefficients in shared memory between dequant and both IDCT passes.
+epf_pass (ops/csrc/epf.cu) replaces TPU kernel K2, pallas_kernels.py
+  epf_pass_pallas. Bound by fp32 arithmetic (up to 180 SAD terms a pixel
+  in pass 0); a 32x16 tile with a mirrored 3-px halo in shared memory
+  serves every neighbour and SAD tap from on-chip memory.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from ..base.device import launch_counter
+from . import pipeline
+from .build import load as load_kernels
+from .pipeline import _EPF0_NEIGHBORS, _EPF12_NEIGHBORS, _EPF_PLUS
+
+DEQUANT_IDCT8_LAUNCHES = launch_counter("dequant_idct8")
+EPF_PASS_LAUNCHES = launch_counter("epf_pass")
+
+# (neighbours, SAD pattern) -> the kernel's pass geometry
+_EPF_GEOMETRY = {
+    (_EPF0_NEIGHBORS, _EPF_PLUS): 0,
+    (_EPF12_NEIGHBORS, _EPF_PLUS): 1,
+    (_EPF12_NEIGHBORS, None): 2,
+}
+
+
+def dequant_cfl(q_img, scale_img, dm_img, xcc_img, bcc_img):
+    """K1's exact contract (pallas_kernels.py dequant_cfl_pallas) in
+    plain torch: q i32[3, H, W]; scale, xcc, bcc f32[H, W] and dm f32[3,
+    H, W] prebroadcast. Returns the dequantized coefficients f32[3, H,
+    W]. The main path runs the fused dequant_idct8 instead."""
+    dq_y = pipeline.adjust_quant_bias(q_img[1], 1) * dm_img[1] * scale_img
+    dq_x = pipeline.adjust_quant_bias(q_img[0], 0) * dm_img[0] * scale_img \
+        + xcc_img * dq_y
+    dq_b = pipeline.adjust_quant_bias(q_img[2], 2) * dm_img[2] * scale_img \
+        + bcc_img * dq_y
+    return torch.stack([dq_x, dq_y, dq_b])
+
+
+def _require(cond: bool, what: str) -> None:
+    if not cond:
+        raise ValueError(what)
+
+
+def _check_cuda(name: str, t: torch.Tensor, dtype, shape, device) -> None:
+    _require(t.device == device, f"{name}: on {t.device}, not {device}")
+    _require(t.dtype == dtype, f"{name}: dtype {t.dtype}, not {dtype}")
+    _require(tuple(t.shape) == tuple(shape),
+             f"{name}: shape {tuple(t.shape)}, not {tuple(shape)}")
+    _require(t.is_contiguous(), f"{name}: not contiguous")
+
+
+def _stream(device: torch.device) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def _launch(name: str, rc: int) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name}: CUDA error {rc} at launch")
+
+
+def dequant_idct8(qimg, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
+                  x_dm_mult, b_dm_mult):
+    """Dequant + AdjustQuantBias + CfL + DC insert + IDCT8.
+
+    Contract of pipeline.decode_xyb_image (its plain twin). On CUDA:
+    qimg int16 or int32 [B, 3, H, W] (or [3, H, W]) with H, W multiples
+    of 8, qf i32, dc f32, ytox/ytob_map i32, dm f32[3, 8, 8], all
+    contiguous on qimg's device; inv_global_scale f32 per image."""
+    if qimg.device.type == "cpu":
+        return pipeline.decode_xyb_image(qimg, qf, dc, ytox_map, ytob_map,
+                                         dm, inv_global_scale, x_dm_mult,
+                                         b_dm_mult)
+    dev = qimg.device
+    _require(dev.type == "cuda", f"dequant_idct8: device {dev}")
+    single = qimg.dim() == 3
+    igs = torch.as_tensor(inv_global_scale, dtype=torch.float32, device=dev)
+    if single:
+        qimg, qf, dc, ytox_map, ytob_map = (
+            t.unsqueeze(0) for t in (qimg, qf, dc, ytox_map, ytob_map))
+    igs = igs.reshape(-1)
+    _require(qimg.dim() == 4 and qimg.shape[1] == 3,
+             f"dequant_idct8: qimg shape {tuple(qimg.shape)}")
+    bsz, _, h, w = qimg.shape
+    _require(h % 8 == 0 and w % 8 == 0 and h > 0 and w > 0,
+             f"dequant_idct8: {h}x{w} is not a multiple of 8")
+    _require(qimg.dtype in (torch.int16, torch.int32),
+             f"dequant_idct8: qimg dtype {qimg.dtype}")
+    _require(qimg.is_contiguous(), "dequant_idct8: qimg not contiguous")
+    nby, nbx = h // 8, w // 8
+    nty, ntx = ytox_map.shape[-2:]
+    tile = pipeline.COLOR_TILE_BLOCKS
+    _require(nty * tile >= nby and ntx * tile >= nbx,
+             f"dequant_idct8: CfL map {nty}x{ntx} too small")
+    _check_cuda("qf", qf, torch.int32, (bsz, nby, nbx), dev)
+    _check_cuda("dc", dc, torch.float32, (bsz, 3, nby, nbx), dev)
+    _check_cuda("ytox_map", ytox_map, torch.int32, (bsz, nty, ntx), dev)
+    _check_cuda("ytob_map", ytob_map, torch.int32, (bsz, nty, ntx), dev)
+    _check_cuda("dm", dm, torch.float32, (3, 8, 8), dev)
+    _check_cuda("inv_global_scale", igs, torch.float32, (bsz,), dev)
+    out = torch.empty((bsz, 3, h, w), dtype=torch.float32, device=dev)
+    k = pipeline._consts()
+    _launch("dequant_idct8", load_kernels().jxl_dequant_idct8(
+        qimg.data_ptr(), int(qimg.dtype == torch.int16), qf.data_ptr(),
+        dc.data_ptr(), ytox_map.data_ptr(), ytob_map.data_ptr(),
+        dm.data_ptr(), igs.data_ptr(), k["inv8"].ctypes.data,
+        k["qbias"].ctypes.data, float(x_dm_mult), float(b_dm_mult),
+        bsz, h, w, nty, ntx, out.data_ptr(), _stream(dev), dev.index))
+    DEQUANT_IDCT8_LAUNCHES.add()
+    return out[0] if single else out
+
+
+def epf_pass(xyb, inv_sigma, sad_mul, channel_scale, neighbors,
+             sad_pattern, sigma_scale):
+    """One EPF pass. inv_sigma is per block, f32[..., ceil(H/8),
+    ceil(W/8)]; sad_mul f32[H, W] is shared by the batch.
+
+    Plain twin: pipeline._epf_pass on the per-pixel expansion of
+    inv_sigma. On CUDA: xyb f32[B, 3, H, W] (or [3, H, W]) with H, W >= 4,
+    contiguous on one device; the result is a new tensor."""
+    key = (tuple(map(tuple, neighbors)),
+           tuple(map(tuple, sad_pattern)) if sad_pattern else None)
+    geometry = _EPF_GEOMETRY.get(key)
+    _require(geometry is not None,
+             "epf_pass: not one of the three stage_epf.cc pass geometries")
+    if xyb.device.type == "cpu":
+        h, w = xyb.shape[-2:]
+        isp = pipeline._repeat2(inv_sigma, 8)[..., :h, :w]
+        return pipeline._epf_pass(xyb, isp, sad_mul, channel_scale,
+                                  neighbors, sad_pattern, sigma_scale)
+    dev = xyb.device
+    _require(dev.type == "cuda", f"epf_pass: device {dev}")
+    single = xyb.dim() == 3
+    if single:
+        xyb, inv_sigma = xyb.unsqueeze(0), inv_sigma.unsqueeze(0)
+    _require(xyb.dim() == 4 and xyb.shape[1] == 3,
+             f"epf_pass: xyb shape {tuple(xyb.shape)}")
+    bsz, _, h, w = xyb.shape
+    _require(h >= 4 and w >= 4, f"epf_pass: {h}x{w} is below the halo")
+    _check_cuda("xyb", xyb, torch.float32, (bsz, 3, h, w), dev)
+    _check_cuda("inv_sigma", inv_sigma, torch.float32,
+                (bsz, -(-h // 8), -(-w // 8)), dev)
+    _check_cuda("sad_mul", sad_mul, torch.float32, (h, w), dev)
+    cs = [float(c) for c in channel_scale]
+    _require(len(cs) == 3, "epf_pass: channel_scale needs 3 values")
+    out = torch.empty_like(xyb)
+    _launch("epf_pass", load_kernels().jxl_epf_pass(
+        xyb.data_ptr(), out.data_ptr(), inv_sigma.data_ptr(),
+        sad_mul.data_ptr(), geometry, *cs, float(sigma_scale), bsz, h, w,
+        _stream(dev), dev.index))
+    EPF_PASS_LAUNCHES.add()
+    return out[0] if single else out

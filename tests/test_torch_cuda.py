@@ -1,0 +1,111 @@
+"""libjxl_tpu_torch/ops/kernels.py on a CUDA card: each hand-written
+kernel against its plain twin, with its launch counter. Skipped without a
+card. Imports no JAX, so it runs where JAX is not installed:
+
+    python -m pytest --noconftest tests/test_torch_cuda.py
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from libjxl_tpu_torch.ops import kernels
+from libjxl_tpu_torch.ops import pipeline as tpl
+
+GEOMETRIES = {
+    "pass0": (tpl._EPF0_NEIGHBORS, tpl._EPF_PLUS, 0.9),
+    "pass1": (tpl._EPF12_NEIGHBORS, tpl._EPF_PLUS, 1.0),
+    "pass2": (tpl._EPF12_NEIGHBORS, None, 6.5),
+}
+CS = (40.0, 5.0, 3.5)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a))
+
+
+def _epf_inputs(seed, b, h, w):
+    """XYB, per-block inv_sigma (one block below kMinSigma, so the skip
+    path runs) and the per-pixel SAD multiplier."""
+    rng = np.random.default_rng(seed)
+    xyb = rng.normal(0, 0.3, (b, 3, h, w)).astype(np.float32)
+    isg = rng.uniform(-3.0, -0.1, (b, -(-h // 8), -(-w // 8))).astype(
+        np.float32)
+    isg[:, 0, 1] = -5.0
+    sad = rng.uniform(0.8, 1.2, (h, w)).astype(np.float32)
+    return xyb, isg, sad
+
+
+def _dequant_inputs(seed, b, h, w, qdtype=np.int32):
+    """Staged batch arrays at the magnitudes real d1 streams give: sparse
+    small AC coefficients, scale = inv_global_scale / qf of a few units."""
+    rng = np.random.default_rng(seed)
+    nby, nbx = h // 8, w // 8
+    nty, ntx = -(-nby // 8), -(-nbx // 8)
+    sparse = rng.random((b, 3, h, w)) < 0.1
+    return ((rng.integers(-3, 4, (b, 3, h, w)) * sparse).astype(qdtype),
+            rng.integers(2, 30, (b, nby, nbx)).astype(np.int32),
+            rng.normal(0, 0.2, (b, 3, nby, nbx)).astype(np.float32),
+            rng.integers(-10, 10, (b, nty, ntx)).astype(np.int32),
+            rng.integers(-45, -30, (b, nty, ntx)).astype(np.int32),
+            rng.uniform(3e-4, 0.01, (3, 8, 8)).astype(np.float32),
+            rng.uniform(6.0, 10.0, (b,)).astype(np.float32))
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda", 0)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("qdtype", [np.int16, np.int32])
+def test_dequant_idct8_kernel_matches_plain(cuda, qdtype):
+    args = [_t(a).to(cuda) for a in _dequant_inputs(16, 2, 128, 200,
+                                                    qdtype)]
+    n = kernels.DEQUANT_IDCT8_LAUNCHES.count
+    got = kernels.dequant_idct8(*args, 0.8, 1.0)
+    ref = tpl.decode_xyb_image(*args, 0.8, 1.0)
+    torch.cuda.synchronize()
+    assert kernels.DEQUANT_IDCT8_LAUNCHES.count == n + 1
+    torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
+def test_epf_pass_kernel_matches_plain(cuda, geometry):
+    neigh, pattern, scale = GEOMETRIES[geometry]
+    xyb, isg, sad = _epf_inputs(17, 2, 70, 50)  # ragged against the tile
+    isp = np.repeat(np.repeat(isg, 8, 1), 8, 2)[:, :70, :50]
+    n = kernels.EPF_PASS_LAUNCHES.count
+    got = kernels.epf_pass(_t(xyb).to(cuda), _t(isg).to(cuda),
+                           _t(sad).to(cuda), CS, neigh, pattern, scale)
+    ref = tpl._epf_pass(_t(xyb).to(cuda), _t(isp).to(cuda),
+                        _t(sad).to(cuda), CS, neigh, pattern, scale)
+    torch.cuda.synchronize()
+    assert kernels.EPF_PASS_LAUNCHES.count == n + 1
+    torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+def test_decode_batch_on_card_matches_cpu(cuda):
+    """The slice on real streams: the card's render (both kernels) within
+    one u8 step of the CPU's (the plain twins), one dequant_idct8 launch
+    and epf_iters epf_pass launches per batch."""
+    from libjxl_tpu.api import codestream
+    from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.base.device import launch_counts
+
+    rng = np.random.default_rng(18)
+    streams = [codestream.encode_lossy(
+        np.clip(rng.normal(120, 30, (100, 132, 3)), 0, 255).astype(np.uint8),
+        distance=1.0, effort=3, device=False) for _ in range(2)]
+    before = launch_counts()
+    got = tpu_codec.decode_batch(streams, cuda)
+    after = launch_counts()
+    assert after["dequant_idct8"] - before["dequant_idct8"] == 1
+    assert after["epf_pass"] - before["epf_pass"] == 2
+    for g, c in zip(got, tpu_codec.decode_batch(streams, "cpu")):
+        assert g.shape == c.shape == (100, 132, 3)
+        assert np.abs(g.astype(int) - c.astype(int)).max() <= 1
