@@ -11,20 +11,30 @@ Needs one CUDA card, nvcc (on PATH or in CUDA_HOME, default
    2048x2048 at d1/e3 with the encoder's default EPF (2 passes), 4 at
    2048x2048 with epf=3 (the 12-neighbour pass), 2 at 1021x765 (the
    true-size mirror); each is also decoded by the host reference;
-3. holds each kernel against its plain torch twin on the card, on the
-   first 16-stream batch's staged inputs, and times both;
-4. drives the serving decode: decode_pipelined over the 32 streams
+   and two 512x512 d4 streams (tests/test_ans_kernel.py's generator);
+3. holds dequant_idct8 and epf_pass against their plain torch twins on
+   the card, on the first 16-stream batch's staged inputs, and times both;
+4. holds ans_decode against its twin on the two 512x512 streams (tape,
+   ok and steps exactly equal), then runs it at full width on the first
+   16-stream batch (1024 lanes): with the placement it must reproduce the
+   host entropy decode's coefficients of all 16 streams exactly;
+5. drives the serving decode: decode_pipelined over the 32 streams
    (batch 16) with the launch counters reset just before, then
    decode_batch per batch of 16 and on the epf=3 and 1021x765 sets;
-5. checks every image against the host decode (at most 1 u8 step),
-   the pipelined output against the batched output (exactly), and the
-   launch counts (dequant_idct8 once a batch, epf_pass epf_iters times).
+6. drives the device-entropy decode: decode_batch_entropy on both
+   16-stream batches, with the counters reset just before, and times its
+   stages on one batch;
+7. checks every image against the host decode (at most 1 u8 step), the
+   pipelined output against the batched and the device-entropy outputs
+   (exactly), and the launch counts (dequant_idct8 once a batch,
+   epf_pass epf_iters times, ans_decode once a device-entropy batch).
 
 It prints the phase seconds, the rates (render-only, pipelined
-end-to-end and host-entropy MP/s) with the card's name, a JSON line of
-the kernels, the card's nvidia-smi name and power limit, and last
-{"ok": true, "device": {...}}. Any failure raises and exits non-zero;
-so does a machine without CUDA.
+end-to-end, host-entropy and device-entropy end-to-end MP/s, with the
+device-entropy stages) with the card's name, a JSON line of the kernels,
+the card's nvidia-smi name and power limit, and last {"ok": true,
+"device": {...}}. Any failure raises and exits non-zero; so does a
+machine without CUDA.
 """
 
 import json
@@ -54,13 +64,29 @@ def make_image(h, w, seed):
     return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
+def small_image(n, seed, noise=3.0):
+    """tests/test_ans_kernel.py's generator: n x n, smooth plus noise."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:n, 0:n]
+    img = (128 + 50 * np.sin(xx * 0.013) + 40 * np.cos(yy * 0.009)
+           + rng.normal(0, noise, (n, n)))
+    rgb = np.stack([img, img * 0.92 + 8, img * 1.05 - 9], axis=-1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
 def encode_and_reference(job):
-    """Pool worker: (h, w, seed, epf) -> (stream, host-decoded u8 RGB)."""
+    """Pool worker: (h, w, seed, epf) -> (stream, host-decoded u8 RGB);
+    epf "small" makes a 512x512 d4 stream of small_image instead."""
     from libjxl_tpu.api import codestream
 
     h, w, seed, epf = job
-    stream = codestream.encode_lossy(make_image(h, w, seed), distance=1.0,
-                                     effort=3, device=False, epf=epf)
+    if epf == "small":
+        stream = codestream.encode_lossy(small_image(h, seed), distance=4.0,
+                                         effort=3, device=False)
+    else:
+        stream = codestream.encode_lossy(make_image(h, w, seed),
+                                         distance=1.0, effort=3,
+                                         device=False, epf=epf)
     ref = codestream.decode(stream, device=False)[0][:, :, :3]
     return stream, np.ascontiguousarray(ref)
 
@@ -174,6 +200,72 @@ def check_kernels(renderer, inputs, config):
     ]
 
 
+def check_ans_decode(small_streams, batch, host_qimg, dev):
+    """ans_decode against its twin on the small streams, then at full
+    width on `batch`, whose placed coefficients must equal the host
+    entropy decode's `host_qimg`; returns the kernel's JSON record."""
+    import torch
+
+    from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.ops import ans_kernel, kernels
+
+    _, _, lp = tpu_codec.prepare_batch_entropy(small_streams)
+    lt = lp.to(dev)
+    tape, ok, steps = kernels.ans_decode(lt)
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rtape, rok, rsteps = ans_kernel.ans_decode_plain(lp.to("cpu"))
+    plain_ms = (time.perf_counter() - t) * 1e3
+    check(bool(rok.all()), "the twin flags a lane of the small streams")
+    tape_err = int((tape.cpu().long() - rtape.long()).abs().max())
+    check(tape_err == 0, f"ans_decode tape differs from the twin's: max "
+          f"abs err {tape_err}")
+    check(torch.equal(ok.cpu(), rok) and torch.equal(steps.cpu(), rsteps),
+          "ans_decode ok/steps differ from the twin's")
+    small_ms = cuda_ms(lambda: kernels.ans_decode(lt), 5)
+    small = f"{len(small_streams)} x 512^2 d4, {lp.n_lanes} lanes, " \
+        f"{int(rsteps.max())} steps"
+    log(f"check ans_decode on {small}: tape, ok, steps equal to the twin; "
+        f"{small_ms:.3f} ms vs plain {plain_ms:.1f} ms (host clock)")
+    del tape, ok, steps, rtape
+
+    t = time.perf_counter()
+    _, _, lp = tpu_codec.prepare_batch_entropy(batch)
+    t_plan = time.perf_counter() - t
+    lt = lp.to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    tape, ok, steps = kernels.ans_decode(lt)
+    check(bool(ok.all()), "ans_decode flags lanes of the full batch")
+    tape = tape[:int(steps.max())]
+    qimg = ans_kernel.place(tape, lp)
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ref = torch.from_numpy(host_qimg).to(dev, torch.int32)
+    check(qimg.shape == ref.shape, f"placed qimg {tuple(qimg.shape)} != "
+          f"host {tuple(ref.shape)}")
+    qimg_err = int((qimg - ref).abs().max())
+    check(qimg_err == 0, f"ans_decode + place differ from the host qimg: "
+          f"max abs err {qimg_err}")
+    del qimg, ref
+    k3_ms = cuda_ms(lambda: kernels.ans_decode(lt), 3)
+    place_ms = cuda_ms(lambda: ans_kernel.place(tape, lp), 3)
+    full = f"{len(batch)} x {SIZE}^2 d1/e3, {lp.n_lanes} lanes, " \
+        f"{int(steps.max())} steps"
+    log(f"check ans_decode + place on {full}: qimg of all {len(batch)} "
+        f"streams equal to the host entropy decode; prepare_batch_entropy "
+        f"{t_plan:.3f} s, ans_decode {k3_ms:.3f} ms, place {place_ms:.3f} "
+        f"ms, steps min {int(steps.min())} max {int(steps.max())}, peak "
+        f"device memory {peak_gb:.2f} GB")
+    return {"name": "ans_decode", "route": "cuda",
+            "source": "libjxl_tpu_torch/ops/csrc/ans_decode.cu",
+            "replaces": "libjxl_tpu/ops/ans_kernel.py:283",
+            "launches": 0, "max_abs_err": max(tape_err, qimg_err),
+            "exact": tape_err == 0 and qimg_err == 0,
+            "ms": k3_ms, "ms_input": full, "plain_ms": plain_ms,
+            "plain_ms_input": small + " (host clock)",
+            "ms_on_plain_input": small_ms, "place_ms": place_ms}
+
+
 def counted(fn, *args, **kw):
     """fn(*args, **kw) and the launches it made, per kernel."""
     from libjxl_tpu_torch.base.device import launch_counts
@@ -181,7 +273,8 @@ def counted(fn, *args, **kw):
     before = launch_counts()
     out = fn(*args, **kw)
     after = launch_counts()
-    return out, {k: after[k] - before.get(k, 0) for k in after}
+    return out, {k: after[k] - before.get(k, 0) for k in after
+                 if after[k] != before.get(k, 0)}
 
 
 def check_images(outs, refs, label):
@@ -225,7 +318,7 @@ def main():
     build.load()
     log(f"phase build: {time.perf_counter() - t:.2f} s ({so.name})")
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
 
     import concurrent.futures as cf
@@ -233,7 +326,8 @@ def main():
 
     jobs = ([(SIZE, SIZE, 100 + i, None) for i in range(2 * BATCH)]
             + [(SIZE, SIZE, 200 + i, 3) for i in range(4)]
-            + [(*ODD_SIZE, 300 + i, None) for i in range(2)])
+            + [(*ODD_SIZE, 300 + i, None) for i in range(2)]
+            + [(512, 512, seed, "small") for seed in (7, 8)])
     t = time.perf_counter()
     workers = min(len(jobs), os.cpu_count() or 1)
     # a worker that dies raises BrokenProcessPool here instead of hanging
@@ -248,7 +342,8 @@ def main():
     main_s, main_r = streams[:2 * BATCH], refs[:2 * BATCH]
     epf3_s, epf3_r = streams[2 * BATCH:2 * BATCH + 4], \
         refs[2 * BATCH:2 * BATCH + 4]
-    odd_s, odd_r = streams[-2:], refs[-2:]
+    odd_s, odd_r = streams[-4:-2], refs[-4:-2]
+    small_s = streams[-2:]
     mp_per_image = SIZE * SIZE / 1e6
 
     # host entropy (+ staging) of one batch, then the kernels against
@@ -260,6 +355,7 @@ def main():
           f"default encode should signal Gaborish + 2 EPF passes: {config}")
     renderer, inputs = tpu_codec.batch_from_numpy(args, config, dev)
     records = check_kernels(renderer, inputs, config)
+    records.append(check_ans_decode(small_s, main_s[:BATCH], args[0], dev))
 
     def render_once():
         return renderer(*inputs)
@@ -280,9 +376,10 @@ def main():
     launches = launch_counts()
     batches = len(main_s) // BATCH
     check(launches == {"dequant_idct8": batches,
-                       "epf_pass": batches * config.epf_iters},
+                       "epf_pass": batches * config.epf_iters,
+                       "ans_decode": 0},
           f"main path launches {launches}")
-    for rec in records:
+    for rec in records[:2]:
         rec["launches"] = launches[rec["name"]]
     check_images(piped, main_r, "decode_pipelined 2048x2048 d1/e3")
 
@@ -305,6 +402,43 @@ def main():
           f"1021x765 decode_batch launches {n}")
     check_images(outs, odd_r, "decode_batch 1021x765 (true-size mirror)")
 
+    # the device-entropy path, counted
+    reset_launch_counts()
+    t = time.perf_counter()
+    ent = [counted(tpu_codec.decode_batch_entropy,
+                   main_s[start:start + BATCH], dev)
+           for start in range(0, len(main_s), BATCH)]
+    t_ent = time.perf_counter() - t
+    launches = launch_counts()
+    check(launches == {"dequant_idct8": batches, "ans_decode": batches,
+                       "epf_pass": batches * config.epf_iters},
+          f"device-entropy path launches {launches}")
+    records[2]["launches"] = launches["ans_decode"]
+    for i, ((outs, info), n) in enumerate(ent):
+        check(info == {"path": "device_entropy"},
+              f"decode_batch_entropy batch {i}: {info}")
+        check(n == {"ans_decode": 1, "dequant_idct8": 1,
+                    "epf_pass": config.epf_iters},
+              f"decode_batch_entropy batch {i} launches {n}")
+        for a, b in zip(outs, piped[i * BATCH:(i + 1) * BATCH]):
+            check(np.array_equal(a, b), "device-entropy output differs "
+                  "from decode_pipelined's")
+        check_images(outs, main_r[i * BATCH:(i + 1) * BATCH],
+                     f"decode_batch_entropy batch {i}")
+    log("decode_batch_entropy per batch of 16 == decode_pipelined, exactly")
+    # the stage split of the same path, in a run of its own: its stage
+    # timer synchronizes the device at every stage's end
+    stages = {}
+    (outs, info), n = counted(tpu_codec.decode_batch_entropy,
+                              main_s[BATCH:], dev, stages=stages)
+    check(info == {"path": "device_entropy"}
+          and n == {"ans_decode": 1, "dequant_idct8": 1,
+                    "epf_pass": config.epf_iters},
+          f"stage-timed decode_batch_entropy: {info}, launches {n}")
+    for a, b in zip(outs, piped[BATCH:]):
+        check(np.array_equal(a, b), "stage-timed device-entropy output "
+              "differs from decode_pipelined's")
+
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "JAX was imported")
     render_mp_s = BATCH * mp_per_image / (render_ms / 1e3)
@@ -317,6 +451,14 @@ def main():
         f"{BATCH}): {t_pipe:.3f} s, {pipe_mp_s:.2f} MP/s on {kind}")
     log(f"phase host entropy + staging ({BATCH} streams): {t_host:.3f} s, "
         f"{host_mp_s:.2f} MP/s on the host of {kind}")
+    ent_mp_s = len(main_s) * mp_per_image / t_ent
+    log(f"phase device-entropy end-to-end ({len(main_s)} streams, batch "
+        f"{BATCH}, decode_batch_entropy): {t_ent:.3f} s, {ent_mp_s:.2f} "
+        f"MP/s on {kind}, beside pipelined host-entropy {pipe_mp_s:.2f} "
+        f"MP/s")
+    log("phase device-entropy stages (one batch of 16, host clock, device "
+        "synchronized at each end): " + ", ".join(
+            f"{k} {v * 1e3:.4f} ms" for k, v in stages.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)

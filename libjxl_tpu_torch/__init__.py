@@ -7,9 +7,10 @@ helpers) by import. It imports `torch` and never `jax`.
 
   base/device.py      device choice, precision policy, launch counters
   ops/pipeline.py     plain torch decode stages (the kernels' twins)
+  ops/ans_kernel.py   rANS lane plan, the decode's plain twin, placement
   ops/kernels.py      wrappers of the hand-written CUDA kernels
   ops/build.py        nvcc build of ops/csrc/*.cu, loaded with ctypes
-  api/tpu_codec.py    batched VarDCT serving decode
+  api/tpu_codec.py    batched VarDCT serving decode, host or device entropy
 """
 
 __version__ = "0.1.0"

@@ -1,11 +1,12 @@
 """Build the hand-written CUDA kernels and load them with ctypes.
 
-`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler
--fPIC` compiles ops/csrc/*.cu, which expose a plain C interface, into one
-shared library under build/libjxl_tpu_torch/ at the repository root. The
-file name carries a hash of the sources and flags, so an edited source
-builds anew and an unchanged one is loaded as it is. The build runs at
-first use; importing this module needs no nvcc.
+`nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC -c`
+compiles each of ops/csrc/*.cu, which expose a plain C interface, in its
+own process, all started together; `nvcc -shared` links the objects into
+one shared library under build/libjxl_tpu_torch/ at the repository root.
+The file name carries a hash of the sources and flags, so an edited
+source builds anew and an unchanged one is loaded as it is. The build
+runs at first use; importing this module needs no nvcc.
 """
 
 from __future__ import annotations
@@ -19,14 +20,15 @@ import subprocess
 import threading
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("dequant_idct8.cu", "epf.cu")
+SOURCES = ("dequant_idct8.cu", "epf.cu", "ans_decode.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
     / "libjxl_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
     # qimg, q16, qf, dc, ytox, ytob, dm, igs, inv8, qbias, x_dm_mult,
@@ -37,6 +39,10 @@ _SIGNATURES = {
     # W, stream, device
     "jxl_epf_pass": (_P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _P,
                      _I),
+    # flat, total, lane_off, n_chains, bw, lane_img, a1, a2, nzclu, zdclu,
+    # kz, alias_words, las, L, t_alloc, tape, ok, steps, stream, device
+    "jxl_ans_decode": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
+                       _I, _I, _P, _P, _P, _P, _I),
 }
 
 _lock = threading.Lock()
@@ -73,15 +79,33 @@ def build() -> pathlib.Path:
         return so
     nvcc = _nvcc()
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp.so")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp),
-           *(str(_CSRC / name) for name in SOURCES)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
+    tmp = so.with_name(f"{so.stem}.{os.getpid()}.tmp")
+    objs = [tmp.with_name(f"{tmp.name}.{name}.o") for name in SOURCES]
+    jobs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj),
+                              str(_CSRC / name)],
+                             stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                             text=True)
+            for name, obj in zip(SOURCES, objs)]
+    report, failed = [], []
+    for name, job in zip(SOURCES, jobs):
+        out, _ = job.communicate()
+        report.append(f"== {name}\n{out}")
+        if job.returncode != 0:
+            failed.append(name)
+    if not failed:
+        res = subprocess.run([nvcc, "-shared", "-o", str(tmp),
+                              *map(str, objs)],
+                             capture_output=True, text=True)
+        report.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append("link")
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(report))
+    if failed:
         tmp.unlink(missing_ok=True)
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n"
-                           f"{res.stdout}{res.stderr}")
+        raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n"
+                           + "".join(report))
     os.replace(tmp, so)
     return so
 

@@ -16,6 +16,11 @@ epf_pass (ops/csrc/epf.cu) replaces TPU kernel K2, pallas_kernels.py
   epf_pass_pallas. Bound by fp32 arithmetic (up to 180 SAD terms a pixel
   in pass 0); a 32x16 tile with a mirrored 3-px halo in shared memory
   serves every neighbour and SAD tap from on-chip memory.
+ans_decode (ops/csrc/ans_decode.cu) replaces TPU kernel K3,
+  ans_kernel.py _make_kernel. Bound by latency: each lane's steps are a
+  serial chain of dependent table loads; one thread per lane, each with
+  its own bit reader on its own stream. Plain twin:
+  ops/ans_kernel.ans_decode_plain.
 """
 
 from __future__ import annotations
@@ -26,11 +31,13 @@ import torch
 
 from ..base.device import launch_counter
 from . import pipeline
+from .ans_kernel import NZ_WIDTH, ZD_WIDTH, LaneTensors, ans_decode_plain
 from .build import load as load_kernels
 from .pipeline import _EPF0_NEIGHBORS, _EPF12_NEIGHBORS, _EPF_PLUS
 
 DEQUANT_IDCT8_LAUNCHES = launch_counter("dequant_idct8")
 EPF_PASS_LAUNCHES = launch_counter("epf_pass")
+ANS_DECODE_LAUNCHES = launch_counter("ans_decode")
 
 # (neighbours, SAD pattern) -> the kernel's pass geometry
 _EPF_GEOMETRY = {
@@ -166,3 +173,49 @@ def epf_pass(xyb, inv_sigma, sad_mul, channel_scale, neighbors,
         _stream(dev), dev.index))
     EPF_PASS_LAUNCHES.add()
     return out[0] if single else out
+
+
+def ans_decode(lt: LaneTensors):
+    """rANS decode of every lane's DCT8 AC tokens into a step tape.
+
+    Returns (tape i32[t_alloc, L], ok bool[L], steps i32[L]), the contract
+    of ans_kernel.ans_decode_plain (its plain twin, which a CPU LaneTensors
+    gets). On CUDA every tensor of `lt` lies on one device, contiguous,
+    with LanePlan.to's dtypes and shapes."""
+    dev = lt.flat_hw.device
+    if dev.type == "cpu":
+        return ans_decode_plain(lt)
+    _require(dev.type == "cuda", f"ans_decode: device {dev}")
+    L = lt.lane_off.numel()
+    _require(0 < L, "ans_decode: no lanes")
+    _require(lt.a1.dim() == 2, f"ans_decode: a1 shape {tuple(lt.a1.shape)}")
+    bsz, alias_words = lt.a1.shape
+    _require(lt.flat_hw.dim() == 1 and lt.flat_hw.numel() > 0,
+             "ans_decode: flat_hw must be a non-empty vector")
+    _require(4 <= lt.las <= 11, f"ans_decode: las {lt.las}")
+    _require(0 < lt.t_alloc and lt.t_alloc * L < 2 ** 31,
+             f"ans_decode: t_alloc {lt.t_alloc}")
+    for name, dtype, shape in (
+            ("flat_hw", torch.int16, lt.flat_hw.shape),
+            ("lane_off", torch.int64, (L,)),
+            ("n_chains", torch.int32, (L,)),
+            ("bw", torch.int32, (L,)),
+            ("lane_img", torch.int32, (L,)),
+            ("a1", torch.int32, (bsz, alias_words)),
+            ("a2", torch.int32, (bsz, alias_words)),
+            ("nzclu", torch.uint8, (bsz, NZ_WIDTH)),
+            ("zdclu", torch.uint8, (bsz, ZD_WIDTH)),
+            ("kz", torch.int32, (128,))):
+        _check_cuda(name, getattr(lt, name), dtype, shape, dev)
+    tape = torch.zeros((lt.t_alloc, L), dtype=torch.int32, device=dev)
+    ok = torch.empty(L, dtype=torch.bool, device=dev)
+    steps = torch.empty(L, dtype=torch.int32, device=dev)
+    _launch("ans_decode", load_kernels().jxl_ans_decode(
+        lt.flat_hw.data_ptr(), lt.flat_hw.numel(), lt.lane_off.data_ptr(),
+        lt.n_chains.data_ptr(), lt.bw.data_ptr(), lt.lane_img.data_ptr(),
+        lt.a1.data_ptr(), lt.a2.data_ptr(), lt.nzclu.data_ptr(),
+        lt.zdclu.data_ptr(), lt.kz.data_ptr(), alias_words, lt.las, L,
+        lt.t_alloc, tape.data_ptr(), ok.data_ptr(), steps.data_ptr(),
+        _stream(dev), dev.index))
+    ANS_DECODE_LAUNCHES.add()
+    return tape, ok, steps

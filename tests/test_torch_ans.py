@@ -1,0 +1,195 @@
+"""libjxl_tpu_torch/ops/ans_kernel.py and the device-entropy batch decode
+(api/tpu_codec.decode_batch_entropy) against the JAX package on the CPU.
+
+The port's rANS decode is held to the NumPy lockstep simulator
+(ops/ans_tpu.simulate) and to the JAX kernel in interpret mode, word for
+word; its placement to the host qimg and to the JAX placement, exactly;
+its images to the port's host-entropy batch exactly and to the JAX path
+and the host decode within one u8 step. On the CPU, kernels.ans_decode
+runs the plain twin, ans_decode_plain; tests/test_torch_cuda.py holds the
+CUDA kernel to it on a card.
+"""
+
+import dataclasses
+import types
+
+import numpy as np
+import pytest
+import torch
+
+from libjxl_tpu.api import codestream
+from libjxl_tpu.api.tpu_codec import decode_tpu_batch_entropy
+from libjxl_tpu.base.status import JXLError
+from libjxl_tpu.ops import ans_kernel as jak
+from libjxl_tpu.ops import ans_tpu
+from libjxl_tpu_torch.api import tpu_codec
+from libjxl_tpu_torch.ops import ans_kernel as tak
+from libjxl_tpu_torch.ops import kernels
+from tests.test_ans_kernel import _decode_state, _image, _plan_for
+
+
+@pytest.fixture(scope="module")
+def case():
+    """tests/test_ans_kernel.py's two 512^2 d4 streams (8 lanes), their
+    plan, the simulator's result and the port's decode of it."""
+    datas = [codestream.encode_lossy(_image(512, s), distance=4.0,
+                                     effort=3) for s in (7, 8)]
+    plan = _plan_for(datas)
+    lp = tak.build_lane_plan(plan)
+    n = kernels.ANS_DECODE_LAUNCHES.count
+    tape, ok, steps = kernels.ans_decode(lp.to("cpu"))
+    assert kernels.ANS_DECODE_LAUNCHES.count == n  # the twin launches none
+    return types.SimpleNamespace(
+        datas=datas, plan=plan, lp=lp, tape=tape, ok=ok, steps=steps,
+        sim=ans_tpu.simulate(plan))
+
+
+@pytest.fixture(scope="module")
+def jax_decode(case):
+    """The JAX kernel's tape (interpret mode) as [T, L], its ok flags and
+    its ServePlan."""
+    tape_s, steps_s, _ = case.sim
+    sp = jak.build_serve_plan(case.plan)
+    tape, _, ok, _ = jak.decode_device(
+        sp, interpret=True, max_steps_hint=steps_s + jak.F_TOT)
+    L = case.plan.n_lanes
+    return types.SimpleNamespace(
+        sp=sp, tape_dev=tape,
+        tape=np.asarray(tape).reshape(-1, 1024)[:, :L],
+        ok=np.asarray(ok).reshape(-1)[:L])
+
+
+def test_twin_tape_matches_simulator(case):
+    tape_s, steps_s, ok_s = case.sim
+    tape = case.tape.numpy()
+    assert tape.shape == (case.plan.max_steps, case.plan.n_lanes)
+    assert ok_s.all() and case.ok.all()
+    np.testing.assert_array_equal(tape[:steps_s], tape_s)
+    assert (tape[steps_s:] == 0).all()
+    assert int(case.steps.max()) == steps_s
+    # a lane's steps end at its last nonzero tape row
+    for lane, s in enumerate(case.steps.tolist()):
+        assert tape[s - 1, lane] != 0 and (tape[s:, lane] == 0).all()
+
+
+def test_twin_tape_matches_jax_kernel(case, jax_decode):
+    tape = case.tape.numpy()
+    T = jax_decode.tape.shape[0]
+    assert T <= tape.shape[0]
+    np.testing.assert_array_equal(tape[:T], jax_decode.tape)
+    assert (tape[T:] == 0).all()
+    np.testing.assert_array_equal(case.ok.numpy(), jax_decode.ok)
+
+
+def test_lane_plan_carries_across_from_serve_plan(case):
+    lp = case.lp
+    got = tak.lane_plan_from_serve_plan(jak.build_serve_plan(case.plan))
+    assert lp.n_lanes == got.n_lanes == 8
+    for f in dataclasses.fields(tak.LanePlan):
+        a, b = getattr(lp, f.name), getattr(got, f.name)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype, f.name
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            assert a == b, f.name
+
+
+def test_place_matches_host_qimg_and_jax(case, jax_decode):
+    q = tak.place(case.tape[:int(case.steps.max())], case.lp)
+    assert q.dtype == torch.int32 and q.shape == (2, 3, 512, 512)
+    # the full tape, zero rows and all, places the same
+    assert torch.equal(q, tak.place(case.tape, case.lp))
+    jq = np.asarray(jak.place_device(jax_decode.sp, jax_decode.tape_dev))
+    np.testing.assert_array_equal(q.numpy(), jq)
+    for si, data in enumerate(case.datas):
+        ref = _decode_state(data, ac_raw=False).qimg
+        np.testing.assert_array_equal(q[si].numpy(), ref)
+
+
+def _max_step(a, b):
+    return int(np.abs(a.astype(int) - b.astype(int)).max())
+
+
+def test_decode_batch_entropy_matches_host_batch_and_jax(case):
+    stages = {}
+    imgs, info = tpu_codec.decode_batch_entropy(case.datas, "cpu",
+                                                stages=stages)
+    assert info == {"path": "device_entropy"}
+    assert list(stages) == [
+        "host parse + plan + lane plan", "upload of the lane plan",
+        "ans_decode", "ok/steps readback + place",
+        "upload of the render arrays", "render", "readback"]
+    assert all(s >= 0 for s in stages.values())
+    jax_imgs, jinfo = decode_tpu_batch_entropy(case.datas)
+    assert jinfo["path"] == "device_entropy"
+    for img, base, jimg, data in zip(
+            imgs, tpu_codec.decode_batch(case.datas, "cpu"), jax_imgs,
+            case.datas):
+        assert img.shape == (512, 512, 3) and img.dtype == np.uint8
+        assert np.array_equal(img, base)
+        assert _max_step(img, jimg) <= 1
+        ref = codestream.decode(data, device=False)[0][:, :, :3]
+        assert _max_step(img, ref) <= 1
+
+
+def test_prepare_batch_entropy_stages_prepare_batch_arrays(case):
+    config, render_args, lp = tpu_codec.prepare_batch_entropy(case.datas)
+    bconfig, args = tpu_codec.prepare_batch(case.datas)
+    assert config == bconfig
+    assert len(render_args) == 9
+    for a, b in zip(render_args, args[1:]):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal(lp.flat_hw, case.lp.flat_hw)
+
+
+def test_out_of_scope_streams_fall_back(case):
+    data = codestream.encode_lossy(_image(384, 3), distance=4.0, effort=3)
+    with pytest.raises(ans_tpu.AnsTpuUnsupported, match="multiple of group"):
+        tak.build_lane_plan(_plan_for([data]))
+    imgs, info = tpu_codec.decode_batch_entropy([data], "cpu")
+    assert info["path"] == "host_entropy"
+    assert info["fallback"].startswith(
+        "batch decode: device entropy unsupported:")
+    assert np.array_equal(imgs[0], tpu_codec.decode_batch([data], "cpu")[0])
+    # the JAX plan's lane grid holds 1024 lanes; the port says so
+    wide = types.SimpleNamespace(max_bits_per_sym=21, states=case.plan.states,
+                                 n_lanes=1025)
+    with pytest.raises(ans_tpu.AnsTpuUnsupported, match="more than 1024"):
+        tak.build_lane_plan(wide)
+
+
+def test_corrupt_lane_flagged_like_simulator(case):
+    plan = _plan_for(case.datas)
+    lane = 5
+    rng = np.random.default_rng(0)
+    idx = rng.integers(0, plan.stream_nhw[lane], 4)
+    plan.streams_hw[lane, idx] ^= rng.integers(1, 1 << 16, 4)
+    _, _, ok_s = ans_tpu.simulate(plan)
+    _, ok, _ = tak.ans_decode_plain(tak.build_lane_plan(plan).to("cpu"))
+    np.testing.assert_array_equal(ok.numpy(), ok_s)
+    assert ok.tolist() == [i != lane for i in range(8)]
+
+
+def test_corrupt_stream_raises_naming_lanes(case):
+    data = case.datas[0]
+    offs, sizes = _decode_state(data, ac_raw=True).ac_raw[1][0]
+    raw = bytearray(data)
+    raw[offs[-1] + sizes[-1] // 2] ^= 0x5A
+    bad = [bytes(raw), case.datas[1]]
+    # lane 3, the stream's last AC group, is not ok: the device path
+    # raises, and the host decoder rejects the stream too
+    with pytest.raises(JXLError, match=r"^batch decode: device kernel "
+                       r"flagged 1 lanes not ok: \[3\]$"):
+        tpu_codec.decode_batch_entropy(bad, "cpu")
+    with pytest.raises(JXLError, match="invalid AC stream"):
+        tpu_codec.decode_batch(bad, "cpu")
+
+
+def test_unfinished_lanes_raise(case, monkeypatch):
+    build = tak.build_lane_plan
+    monkeypatch.setattr(
+        tak, "build_lane_plan",
+        lambda plan: dataclasses.replace(build(plan), t_alloc=100))
+    with pytest.raises(JXLError, match=r"^batch decode: device kernel "
+                       r"flagged 8 lanes not ok: \[0, 1, 2, 3, 4, 5, 6, 7\]$"):
+        tpu_codec.decode_batch_entropy(case.datas, "cpu")

@@ -1,6 +1,7 @@
 """libjxl_tpu_torch/ops/kernels.py on a CUDA card: each hand-written
-kernel against its plain twin, with its launch counter. Skipped without a
-card. Imports no JAX, so it runs where JAX is not installed:
+kernel against its plain twin, with its launch counter, and the two
+decode paths against the CPU's. Skipped without a card. Imports no JAX,
+so it runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -108,4 +109,62 @@ def test_decode_batch_on_card_matches_cpu(cuda):
     assert after["epf_pass"] - before["epf_pass"] == 2
     for g, c in zip(got, tpu_codec.decode_batch(streams, "cpu")):
         assert g.shape == c.shape == (100, 132, 3)
+        assert np.abs(g.astype(int) - c.astype(int)).max() <= 1
+
+
+def _entropy_streams(n, seed):
+    """n distinct smooth 256x512 streams at d4: two AC groups each."""
+    from libjxl_tpu.api import codestream
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:256, 0:512]
+    out = []
+    for i in range(n):
+        img = (128 + 50 * np.sin(xx * 0.013 + i) + 40 * np.cos(yy * 0.009)
+               + rng.normal(0, 3, (256, 512)))
+        rgb = np.stack([img, img * 0.92 + 8, img * 1.05 - 9], axis=-1)
+        out.append(codestream.encode_lossy(
+            np.clip(rgb, 0, 255).astype(np.uint8), distance=4.0, effort=3,
+            device=False))
+    return out
+
+
+@pytest.mark.cuda
+def test_ans_decode_kernel_matches_plain(cuda):
+    """K3 against its twin: the tape word for word, ok and steps."""
+    from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.ops import ans_kernel
+
+    _, _, lp = tpu_codec.prepare_batch_entropy(_entropy_streams(2, 19))
+    n = kernels.ANS_DECODE_LAUNCHES.count
+    tape, ok, steps = kernels.ans_decode(lp.to(cuda))
+    torch.cuda.synchronize()
+    assert kernels.ANS_DECODE_LAUNCHES.count == n + 1
+    rtape, rok, rsteps = ans_kernel.ans_decode_plain(lp.to("cpu"))
+    assert rok.all()
+    assert torch.equal(tape.cpu(), rtape)
+    assert torch.equal(ok.cpu(), rok)
+    assert torch.equal(steps.cpu(), rsteps)
+
+
+@pytest.mark.cuda
+def test_decode_batch_entropy_on_card_matches_cpu(cuda):
+    """The device-entropy path on the card: one ans_decode, one
+    dequant_idct8 and two epf_pass launches; the card's host-entropy batch
+    exactly, the CPU's within one u8 step."""
+    from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.base.device import launch_counts
+
+    streams = _entropy_streams(2, 20)
+    before = launch_counts()
+    got, info = tpu_codec.decode_batch_entropy(streams, cuda)
+    after = launch_counts()
+    assert info == {"path": "device_entropy"}
+    assert {k: after[k] - before.get(k, 0) for k in after} == {
+        "ans_decode": 1, "dequant_idct8": 1, "epf_pass": 2}
+    cpu, cinfo = tpu_codec.decode_batch_entropy(streams, "cpu")
+    assert cinfo == {"path": "device_entropy"}
+    for g, b, c in zip(got, tpu_codec.decode_batch(streams, cuda), cpu):
+        assert g.shape == c.shape == (256, 512, 3)
+        assert np.array_equal(g, b)
         assert np.abs(g.astype(int) - c.astype(int)).max() <= 1

@@ -155,6 +155,16 @@ _NO_JAX = textwrap.dedent("""
     out = tpu_codec.decode_pipelined([s, s], "cpu", batch_size=1)
     assert all(np.abs(o.astype(int) - ref.astype(int)).max() <= 1
                for o in out)
+    # two AC groups (one group decodes inline, with no raw sections):
+    # the rANS twin and the placement run
+    yy, xx = np.mgrid[0:256, 0:512]
+    smooth = np.clip(128 + 50 * np.sin(xx * 0.013) + 40 * np.cos(yy * 0.009),
+                     0, 255).astype(np.uint8)[..., None].repeat(3, 2)
+    s2 = codestream.encode_lossy(smooth, distance=4.0, effort=3,
+                                 device=False)
+    imgs, info = tpu_codec.decode_batch_entropy([s2], "cpu")
+    assert info == {"path": "device_entropy"}, info
+    assert np.array_equal(imgs[0], tpu_codec.decode_batch([s2], "cpu")[0])
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib")]
     assert not bad, bad
     print("NO_JAX_OK")
