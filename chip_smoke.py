@@ -27,11 +27,20 @@ Needs one CUDA card, nvcc (on PATH or in CUDA_HOME, default
 7. checks every image against the host decode (at most 1 u8 step), the
    pipelined output against the batched and the device-entropy outputs
    (exactly), and the launch counts (dequant_idct8 once a batch,
-   epf_pass epf_iters times, ans_decode once a device-entropy batch).
+   epf_pass epf_iters times, ans_decode once a device-entropy batch);
+8. holds every probe kernel (the TPU gather probes S1-S7,
+   libjxl_tpu_torch/probes) against its twin, exactly, then drives the
+   probes with the counters reset just before: every S1-S5 form timed
+   at its TPU probe's step count (ns per lane-step, the marginal cost
+   t(5n) - t(n) over 4n) beside its twin, S6's 560 no-op launches eager
+   and from a CUDA graph, and S7's profile of the device-entropy stages
+   on the first 16-stream batch (the stream-copy floor, ans_decode's
+   cost a step and fixed cost, the tape fill, place's pieces).
 
 It prints the phase seconds, the rates (render-only, pipelined
 end-to-end, host-entropy and device-entropy end-to-end MP/s, with the
-device-entropy stages) with the card's name, a JSON line of the kernels,
+device-entropy stages) with the card's name, a line a probe form and the
+K3 split with the card's name and power limit, a JSON line of the kernels,
 the card's nvidia-smi name and power limit, and last {"ok": true,
 "device": {...}}. Any failure raises and exits non-zero; so does a
 machine without CUDA.
@@ -39,7 +48,6 @@ machine without CUDA.
 
 import json
 import os
-import subprocess
 import sys
 import time
 
@@ -100,16 +108,10 @@ def check(cond, what):
         raise RuntimeError(f"chip_smoke: {what}")
 
 
-def nvidia_smi_line():
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True)
-    return res.stdout.strip().splitlines()[0]
-
-
 def cuda_ms(fn, reps):
     """Mean device milliseconds of fn() over `reps` runs after one warm-up
-    (CUDA events; every input here exceeds the 50 MB L2)."""
+    (CUDA events). The 16-image batch's inputs exceed the 50 MB L2; the
+    512x512 streams' lane plan does not, so its K3 time is a warm one."""
     import torch
 
     fn()
@@ -277,6 +279,121 @@ def counted(fn, *args, **kw):
                  if after[k] != before.get(k, 0)}
 
 
+def nonzero_counts():
+    """The launch counters that moved since the last reset: a counter
+    registered by a module that was imported but never launched is 0."""
+    from libjxl_tpu_torch.base.device import launch_counts
+
+    return {k: n for k, n in launch_counts().items() if n}
+
+
+def check_probes(small_streams, batch, dev):
+    """Every probe kernel against its twin, exactly: S1-S6 on the scratch
+    input and a seeded one (probes.gather.check_probes), S7's stream-copy
+    floor at ans_decode's step counts on the small streams and on
+    `batch`. Returns {probe: max abs err}."""
+    import torch
+
+    from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.ops import kernels
+    from libjxl_tpu_torch.probes import gather, prof_kernel
+
+    errs = gather.check_probes(dev)
+    errs["S7"] = 0
+    for streams in (small_streams, batch):
+        lt = tpu_codec.prepare_batch_entropy(streams)[2].to(dev)
+        steps = kernels.ans_decode(lt)[2]
+        tape, ok = prof_kernel.glue(lt, steps)
+        ref, rok = prof_kernel.glue_plain(lt, steps)
+        torch.cuda.synchronize()
+        check(bool(ok.all()) and bool(rok.all()), "glue flags a lane")
+        errs["S7"] = max(errs["S7"],
+                         int((tape.long() - ref.long()).abs().max()))
+        del tape, ref
+    for probe, err in errs.items():
+        check(err == 0, f"{probe}'s kernel differs from its twin: max abs "
+              f"err {err}")
+    log(f"check probes S1-S7: every kernel equal to its twin ({errs})")
+    return errs
+
+
+def drive_probes(batch, dev, errs, card):
+    """The probes' path with the counters reset just before: every form
+    timed (probes.gather.run_probes) and the device-entropy profile of
+    `batch` (probes.prof_kernel.profile_entropy). Prints a line a form and
+    the K3 split; returns the probes' JSON records."""
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+    from libjxl_tpu_torch.probes import gather, prof_kernel
+
+    reset_launch_counts()
+    forms, wl = gather.run_probes(dev)
+    prof = prof_kernel.profile_entropy(batch, dev)
+    launches = nonzero_counts()
+    names = [c.name for c, _ in gather.PROBES.values()]
+    check(set(launches) == {*names, "glue", "ans_decode"},
+          f"probe path launches {launches}")
+    for rec in forms:
+        log(gather.form_line(rec, card))
+    log(gather.wl_line(wl, card))
+    log(f"S7 K3 split on {prof['images']} x {SIZE}^2 d1/e3 "
+        f"({prof['lanes']} lanes, {prof['steps_max']} steps, t_alloc "
+        f"{prof['t_alloc']}): ans_decode {prof['ans_decode_ms'][0]:.4f} ms "
+        f"at full (caps {prof['step_points']}: {prof['ans_decode_ms']} ms; "
+        f"{prof['ans_decode_ns_per_step']:.3f} ns a step, fixed "
+        f"{prof['ans_decode_fixed_ms']:.4f} ms); stream-copy floor "
+        f"{prof['floor_ms'][0]:.4f} ms ({prof['floor_ms']} ms; "
+        f"{prof['floor_ns_per_step']:.3f} ns a step, fixed "
+        f"{prof['floor_fixed_ms']:.4f} ms), twin "
+        f"{prof['floor_plain_ms']:.4f} ms; decode alone "
+        f"{prof['decode_ns_per_step']:.3f} ns a step; tape alloc + zero "
+        f"fill {prof['tape_zero_fill_ms']:.4f} ms; {card}")
+    log(f"S7 place {prof['place_ms']:.4f} ms; pieces on image 0 "
+        f"{prof['place_image0_ms']} ms, summed over the batch "
+        f"{prof['place_batch_ms']} ms; {card}")
+
+    src = "libjxl_tpu_torch/ops/csrc/"
+    records = []
+    for probe, (counter, replaces) in gather.PROBES.items():
+        rec = {"name": counter.name, "route": "cuda",
+               "source": src + "gather_probe.cu", "replaces": replaces,
+               "launches": launches[counter.name],
+               "max_abs_err": errs[probe], "exact": errs[probe] == 0}
+        if probe == "S6":
+            rec.update({k: wl[k] for k in (
+                "ms", "plain_ms", "graph_ms", "calls", "us_per_launch",
+                "graph_us_per_launch", "plain_us_per_call")})
+        else:
+            # the probe's first form stands for it; every form beside it
+            mine = [r for r, f in zip(forms, gather.FORMS)
+                    if f.probe == probe]
+            head = mine[0]
+            rec.update({
+                "ms": head["ms"], "plain_ms": head["plain_ms"],
+                "ms_input": f"{head['name']}, {head['ms_iters']} steps",
+                "ns_per_step": head["ns_per_step"],
+                "plain_ns_per_step": head["plain_ns_per_step"],
+                "forms": [{k: r[k] for k in (
+                    "name", "iters", "ns_per_step", "plain_iters",
+                    "plain_ns_per_step")} for r in mine]})
+        records.append(rec)
+    records.append({
+        "name": "glue", "route": "cuda", "source": src + "ans_probe.cu",
+        "replaces": "scratch/prof_kernel.py:88",
+        "launches": launches["glue"], "max_abs_err": errs["S7"],
+        "exact": errs["S7"] == 0, "ms": prof["floor_ms"][0],
+        "plain_ms": prof["floor_plain_ms"],
+        "ms_input": f"{prof['images']} x {SIZE}^2 d1/e3, {prof['lanes']} "
+                    f"lanes, t_alloc {prof['t_alloc']}",
+        "ns_per_step": prof["floor_ns_per_step"],
+        "k3_split": {k: prof[k] for k in (
+            "steps_max", "ans_decode_ms", "floor_ms", "step_points",
+            "ans_decode_ns_per_step", "ans_decode_fixed_ms",
+            "floor_ns_per_step", "floor_fixed_ms", "decode_ns_per_step",
+            "tape_zero_fill_ms", "place_ms", "place_image0_ms",
+            "place_batch_ms")}})
+    return records
+
+
 def check_images(outs, refs, label):
     worst = 0
     for out, ref in zip(outs, refs):
@@ -299,7 +416,7 @@ def main():
         return 1
     from libjxl_tpu import native_ext
     from libjxl_tpu_torch.api import tpu_codec
-    from libjxl_tpu_torch.base.device import (launch_counts,
+    from libjxl_tpu_torch.base.device import (card_line,
                                               reset_launch_counts,
                                               resolve_device)
     from libjxl_tpu_torch.ops import build
@@ -307,7 +424,7 @@ def main():
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
     kind = torch.cuda.get_device_name(0)
-    smi = nvidia_smi_line()
+    smi = card_line()
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     check(native_ext.get_lib() is not None,
           "the native host library did not build: host entropy would run "
@@ -373,11 +490,10 @@ def main():
     t = time.perf_counter()
     piped = tpu_codec.decode_pipelined(main_s, dev, batch_size=BATCH)
     t_pipe = time.perf_counter() - t
-    launches = launch_counts()
+    launches = nonzero_counts()
     batches = len(main_s) // BATCH
     check(launches == {"dequant_idct8": batches,
-                       "epf_pass": batches * config.epf_iters,
-                       "ans_decode": 0},
+                       "epf_pass": batches * config.epf_iters},
           f"main path launches {launches}")
     for rec in records[:2]:
         rec["launches"] = launches[rec["name"]]
@@ -409,7 +525,7 @@ def main():
                    main_s[start:start + BATCH], dev)
            for start in range(0, len(main_s), BATCH)]
     t_ent = time.perf_counter() - t
-    launches = launch_counts()
+    launches = nonzero_counts()
     check(launches == {"dequant_idct8": batches, "ans_decode": batches,
                        "epf_pass": batches * config.epf_iters},
           f"device-entropy path launches {launches}")
@@ -438,6 +554,13 @@ def main():
     for a, b in zip(outs, piped[BATCH:]):
         check(np.array_equal(a, b), "stage-timed device-entropy output "
               "differs from decode_pipelined's")
+
+
+    # the TPU gather probes S1-S7 and the device-entropy profile
+    t = time.perf_counter()
+    errs = check_probes(small_s, main_s[:BATCH], dev)
+    records += drive_probes(main_s[:BATCH], dev, errs, smi)
+    log(f"phase probes: {time.perf_counter() - t:.2f} s")
 
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "JAX was imported")

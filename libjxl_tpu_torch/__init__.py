@@ -11,6 +11,8 @@ helpers) by import. It imports `torch` and never `jax`.
   ops/kernels.py      wrappers of the hand-written CUDA kernels
   ops/build.py        nvcc build of ops/csrc/*.cu, loaded with ctypes
   api/tpu_codec.py    batched VarDCT serving decode, host or device entropy
+  probes/gather.py    the TPU gather probes S1-S6 as CUDA kernels + twins
+  probes/prof_kernel.py  S7: K3's stream-copy floor, the entropy profile
 """
 
 __version__ = "0.1.0"

@@ -16,6 +16,7 @@ show that its main path went through the kernels.
 
 from __future__ import annotations
 
+import subprocess
 import threading
 
 import torch
@@ -52,9 +53,9 @@ class LaunchCounter:
         self.count = 0
         self._lock = threading.Lock()
 
-    def add(self) -> None:
+    def add(self, n: int = 1) -> None:
         with self._lock:
-            self.count += 1
+            self.count += n
 
     def reset(self) -> None:
         with self._lock:
@@ -76,3 +77,13 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for c in _COUNTERS.values():
         c.reset()
+
+
+def card_line() -> str:
+    """The first card's name and power limit, as `nvidia-smi
+    --query-gpu=name,power.limit --format=csv,noheader` prints them: the
+    label every device number is kept with."""
+    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True)
+    return res.stdout.strip().splitlines()[0]

@@ -368,39 +368,74 @@ def place(tape: torch.Tensor, lp: LanePlan) -> torch.Tensor:
 
     `tape` is i32[T, L] with any T that holds every lane's steps; rows
     past them are zero. Runs one image at a time, which bounds the (lanes,
-    chains, 64) index arrays to one image's share."""
+    chains, 64) index arrays to one image's share. Its pieces, in order:
+    lane_major (transpose), chain_cumsum, chain_starts (searchsorted),
+    chain_coeffs (gather), to_raster (permutation)."""
     dev = tape.device
-    T, L = tape.shape
     g = lp.gy * lp.gx
-    if L != lp.B * g:
-        raise ValueError(f"place: {L} lanes, not {lp.B} x {g} groups")
-    C = GROUP_BLOCKS * GROUP_BLOCKS * 3          # chains of a full group
-    tl_all = tape.t().contiguous()               # [L, T] lane-major
-    k = torch.arange(64, device=dev)
-    q = torch.arange(1, C + 1, dtype=torch.int32,
-                     device=dev).expand(g, C).contiguous()
+    if tape.shape[1] != lp.B * g:
+        raise ValueError(f"place: {tape.shape[1]} lanes, not {lp.B} x {g} "
+                         "groups")
+    tl_all = lane_major(tape)
+    q = chain_queries(g, dev)
     inv = torch.from_numpy(np.ascontiguousarray(lp.inv_order)).to(dev)
     out = torch.empty((lp.B, 3, lp.H, lp.W), dtype=torch.int32, device=dev)
     for b in range(lp.B):
         tl = tl_all[b * g:(b + 1) * g]
-        cum = ((tl >> 30) & 1).cumsum(1, dtype=torch.int32)
-        # starts[l, c]: the first step t with cum[l, t] == c + 1
-        starts = torch.searchsorted(cum, q)
-        nxt = torch.cat([starts[:, 1:], torch.full_like(starts[:, :1], T)], 1)
-        idx = (starts[:, :, None] + k).clamp(max=T - 1)
-        vals = tl.gather(1, idx.reshape(g, -1)).reshape(g, C, 64)
-        # steps 1..63 of each chain; a shorter chain's next steps belong to
-        # the next chain
-        valid = (k >= 1) & (k < (nxt - starts)[:, :, None])
-        u = torch.where(valid, vals & TAPE_VAL, 0)
-        coeff = torch.where((u & 1) == 1, -((u + 1) >> 1), u >> 1)
-        # (groups, chains, 64) -> (gy, gx, by, bx, 3, 64); j -> ci (1, 0, 2)
-        c6 = coeff.reshape(lp.gy, lp.gx, GROUP_BLOCKS, GROUP_BLOCKS, 3, 64)
-        c6 = c6[..., [1, 0, 2], :]
-        # raster position p takes chain step inv[ci, p] (0: unset)
-        ib = inv[b].expand(c6.shape)
-        perm = torch.where(ib == 0, 0, c6.gather(5, ib))
-        p8 = perm.reshape(lp.gy, lp.gx, GROUP_BLOCKS, GROUP_BLOCKS, 3, 8, 8)
-        # -> (3, gy, by, ry, gx, bx, rx)
-        out[b] = p8.permute(4, 0, 2, 5, 1, 3, 6).reshape(3, lp.H, lp.W)
+        starts = chain_starts(chain_cumsum(tl), q)
+        out[b] = to_raster(chain_coeffs(tl, starts), inv[b], lp)
     return out
+
+
+def lane_major(tape: torch.Tensor) -> torch.Tensor:
+    """place's transpose: the tape [T, L] as [L, T]."""
+    return tape.t().contiguous()
+
+
+def chain_queries(groups: int, device) -> torch.Tensor:
+    """1..C for each of `groups` lanes: the chain counts chain_starts
+    looks for (C, the chains of a full group)."""
+    C = GROUP_BLOCKS * GROUP_BLOCKS * 3
+    return torch.arange(1, C + 1, dtype=torch.int32,
+                        device=device).expand(groups, C).contiguous()
+
+
+def chain_cumsum(tl: torch.Tensor) -> torch.Tensor:
+    """Chain starts seen up to each step of each lane of tl [lanes, T]."""
+    return ((tl >> 30) & 1).cumsum(1, dtype=torch.int32)
+
+
+def chain_starts(cum: torch.Tensor, q: torch.Tensor) -> torch.Tensor:
+    """starts[l, c]: the first step t with cum[l, t] == c + 1."""
+    return torch.searchsorted(cum, q)
+
+
+def chain_coeffs(tl: torch.Tensor, starts: torch.Tensor) -> torch.Tensor:
+    """Each chain's 64 coefficients [lanes, C, 64] in chain-step order,
+    gathered from tl [lanes, T] at `starts`."""
+    g, T = tl.shape
+    C = starts.shape[1]
+    k = torch.arange(64, device=tl.device)
+    nxt = torch.cat([starts[:, 1:], torch.full_like(starts[:, :1], T)], 1)
+    idx = (starts[:, :, None] + k).clamp(max=T - 1)
+    vals = tl.gather(1, idx.reshape(g, -1)).reshape(g, C, 64)
+    # steps 1..63 of each chain; a shorter chain's next steps belong to the
+    # next chain
+    valid = (k >= 1) & (k < (nxt - starts)[:, :, None])
+    u = torch.where(valid, vals & TAPE_VAL, 0)
+    return torch.where((u & 1) == 1, -((u + 1) >> 1), u >> 1)
+
+
+def to_raster(coeff: torch.Tensor, inv_b: torch.Tensor,
+              lp: LanePlan) -> torch.Tensor:
+    """One image's chain coefficients [groups, C, 64] as its qimg planes
+    [3, H, W], through the coefficient order inv_b [3, 64]."""
+    # (groups, chains, 64) -> (gy, gx, by, bx, 3, 64); j -> ci (1, 0, 2)
+    c6 = coeff.reshape(lp.gy, lp.gx, GROUP_BLOCKS, GROUP_BLOCKS, 3, 64)
+    c6 = c6[..., [1, 0, 2], :]
+    # raster position p takes chain step inv[ci, p] (0: unset)
+    ib = inv_b.expand(c6.shape)
+    perm = torch.where(ib == 0, 0, c6.gather(5, ib))
+    p8 = perm.reshape(lp.gy, lp.gx, GROUP_BLOCKS, GROUP_BLOCKS, 3, 8, 8)
+    # -> (3, gy, by, ry, gx, bx, rx)
+    return p8.permute(4, 0, 2, 5, 1, 3, 6).reshape(3, lp.H, lp.W)

@@ -20,7 +20,8 @@ import subprocess
 import threading
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("dequant_idct8.cu", "epf.cu", "ans_decode.cu")
+SOURCES = ("dequant_idct8.cu", "epf.cu", "ans_decode.cu", "gather_probe.cu",
+           "ans_probe.cu")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
     / "libjxl_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -43,6 +44,22 @@ _SIGNATURES = {
     # kz, alias_words, las, L, t_alloc, tape, ok, steps, stream, device
     "jxl_ans_decode": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
                        _I, _I, _P, _P, _P, _P, _I),
+    # the same, with steps an input
+    "jxl_ans_stream_floor": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
+                             _I, _I, _I, _P, _P, _P, _P, _I),
+    # T, gathers, shared, rowcol, table, state, iters, out, stream, device
+    "jxl_probe_chain": (_I, _I, _I, _I, _P, _P, _I, _P, _P, _I),
+    # depth, rule, mode, win, row_stride, col_mask, state, iters, out,
+    # stream, device
+    "jxl_probe_window": (_I, _I, _I, _P, _I, _I, _P, _I, _P, _P, _I),
+    # body, shared, tbl, win, state, iters, out, stream, device
+    "jxl_probe_table": (_I, _I, _P, _P, _P, _I, _P, _P, _I),
+    # shared, tbl, state, H, W, axis, mod, group, iters, out, stream,
+    # device
+    "jxl_probe_take_along": (_I, _P, _P, _I, _I, _I, _I, _I, _I, _P, _P,
+                             _I),
+    # a, o, n, stream, device
+    "jxl_probe_noop": (_P, _P, _I, _P, _I),
 }
 
 _lock = threading.Lock()

@@ -175,26 +175,21 @@ def epf_pass(xyb, inv_sigma, sad_mul, channel_scale, neighbors,
     return out[0] if single else out
 
 
-def ans_decode(lt: LaneTensors):
-    """rANS decode of every lane's DCT8 AC tokens into a step tape.
-
-    Returns (tape i32[t_alloc, L], ok bool[L], steps i32[L]), the contract
-    of ans_kernel.ans_decode_plain (its plain twin, which a CPU LaneTensors
-    gets). On CUDA every tensor of `lt` lies on one device, contiguous,
-    with LanePlan.to's dtypes and shapes."""
+def check_lanes(kernel: str, lt: LaneTensors) -> tuple[int, int]:
+    """Raise unless every tensor of `lt` lies on one CUDA device,
+    contiguous, with LanePlan.to's dtypes and shapes; returns (lanes,
+    alias words an image)."""
     dev = lt.flat_hw.device
-    if dev.type == "cpu":
-        return ans_decode_plain(lt)
-    _require(dev.type == "cuda", f"ans_decode: device {dev}")
+    _require(dev.type == "cuda", f"{kernel}: device {dev}")
     L = lt.lane_off.numel()
-    _require(0 < L, "ans_decode: no lanes")
-    _require(lt.a1.dim() == 2, f"ans_decode: a1 shape {tuple(lt.a1.shape)}")
+    _require(0 < L, f"{kernel}: no lanes")
+    _require(lt.a1.dim() == 2, f"{kernel}: a1 shape {tuple(lt.a1.shape)}")
     bsz, alias_words = lt.a1.shape
     _require(lt.flat_hw.dim() == 1 and lt.flat_hw.numel() > 0,
-             "ans_decode: flat_hw must be a non-empty vector")
-    _require(4 <= lt.las <= 11, f"ans_decode: las {lt.las}")
+             f"{kernel}: flat_hw must be a non-empty vector")
+    _require(4 <= lt.las <= 11, f"{kernel}: las {lt.las}")
     _require(0 < lt.t_alloc and lt.t_alloc * L < 2 ** 31,
-             f"ans_decode: t_alloc {lt.t_alloc}")
+             f"{kernel}: t_alloc {lt.t_alloc}")
     for name, dtype, shape in (
             ("flat_hw", torch.int16, lt.flat_hw.shape),
             ("lane_off", torch.int64, (L,)),
@@ -207,6 +202,20 @@ def ans_decode(lt: LaneTensors):
             ("zdclu", torch.uint8, (bsz, ZD_WIDTH)),
             ("kz", torch.int32, (128,))):
         _check_cuda(name, getattr(lt, name), dtype, shape, dev)
+    return L, alias_words
+
+
+def ans_decode(lt: LaneTensors):
+    """rANS decode of every lane's DCT8 AC tokens into a step tape.
+
+    Returns (tape i32[t_alloc, L], ok bool[L], steps i32[L]), the contract
+    of ans_kernel.ans_decode_plain (its plain twin, which a CPU LaneTensors
+    gets). On CUDA every tensor of `lt` lies on one device, contiguous,
+    with LanePlan.to's dtypes and shapes."""
+    dev = lt.flat_hw.device
+    if dev.type == "cpu":
+        return ans_decode_plain(lt)
+    L, alias_words = check_lanes("ans_decode", lt)
     tape = torch.zeros((lt.t_alloc, L), dtype=torch.int32, device=dev)
     ok = torch.empty(L, dtype=torch.bool, device=dev)
     steps = torch.empty(L, dtype=torch.int32, device=dev)

@@ -1,7 +1,7 @@
-"""libjxl_tpu_torch/ops/kernels.py on a CUDA card: each hand-written
-kernel against its plain twin, with its launch counter, and the two
-decode paths against the CPU's. Skipped without a card. Imports no JAX,
-so it runs where JAX is not installed:
+"""libjxl_tpu_torch/ops/kernels.py and libjxl_tpu_torch/probes on a CUDA
+card: each hand-written kernel against its plain twin, with its launch
+counter, and the two decode paths against the CPU's. Skipped without a
+card. Imports no JAX, so it runs where JAX is not installed:
 
     python -m pytest --noconftest tests/test_torch_cuda.py
 """
@@ -12,6 +12,7 @@ import torch
 
 from libjxl_tpu_torch.ops import kernels
 from libjxl_tpu_torch.ops import pipeline as tpl
+from libjxl_tpu_torch.probes import gather
 
 GEOMETRIES = {
     "pass0": (tpl._EPF0_NEIGHBORS, tpl._EPF_PLUS, 0.9),
@@ -160,7 +161,8 @@ def test_decode_batch_entropy_on_card_matches_cpu(cuda):
     got, info = tpu_codec.decode_batch_entropy(streams, cuda)
     after = launch_counts()
     assert info == {"path": "device_entropy"}
-    assert {k: after[k] - before.get(k, 0) for k in after} == {
+    assert {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)} == {
         "ans_decode": 1, "dequant_idct8": 1, "epf_pass": 2}
     cpu, cinfo = tpu_codec.decode_batch_entropy(streams, "cpu")
     assert cinfo == {"path": "device_entropy"}
@@ -168,3 +170,54 @@ def test_decode_batch_entropy_on_card_matches_cpu(cuda):
         assert g.shape == c.shape == (256, 512, 3)
         assert np.array_equal(g, b)
         assert np.abs(g.astype(int) - c.astype(int)).max() <= 1
+
+
+# the TPU gather probes S1-S7 (libjxl_tpu_torch/probes) -----------------------
+
+def _launches(fn, *args):
+    from libjxl_tpu_torch.base.device import launch_counts
+
+    before = launch_counts()
+    out = fn(*args)
+    after = launch_counts()
+    return out, {k: after[k] - before.get(k, 0) for k in after
+                 if after[k] != before.get(k, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", gather.FORMS, ids=lambda f: f.name)
+def test_probe_kernel_matches_twin(cuda, form):
+    """Each S1-S5 form's kernel equals its twin exactly, on the scratch
+    state and a seeded one: one launch each."""
+    err, n = _launches(gather.check_form, form, cuda)
+    assert err == 0
+    assert n == {gather.PROBES[form.probe][0].name: 2}
+
+
+@pytest.mark.cuda
+def test_wl_pallas_kernel_matches_twin(cuda):
+    """S6: row 0 after 560 launches, eager and replayed from a CUDA graph,
+    equals the input's; every launch that ran is counted."""
+    err, n = _launches(gather.check_wl_pallas, cuda)
+    assert err == 0
+    # per input: 560 eager, the graph's warm-up launch, 560 replayed
+    assert n == {"wl_pallas": 2 * (2 * gather.WL_CALLS + 1)}
+
+
+@pytest.mark.cuda
+def test_glue_kernel_matches_twin(cuda):
+    """S7: the stream-copy floor's tape equals its twin's word for word at
+    ans_decode's step counts, and every lane is ok."""
+    from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.probes import prof_kernel
+
+    _, _, lp = tpu_codec.prepare_batch_entropy(_entropy_streams(2, 21))
+    lt = lp.to(cuda)
+    _, _, steps = kernels.ans_decode(lt)
+    (tape, ok), n = _launches(prof_kernel.glue, lt, steps)
+    torch.cuda.synchronize()
+    assert n == {"glue": 1}
+    rtape, rok = prof_kernel.glue_plain(lt, steps)
+    assert ok.all() and rok.all()
+    assert torch.equal(tape, rtape)
+    assert (tape[int(steps.max()):] == 0).all()
