@@ -4,20 +4,25 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, nvcc (on PATH or in CUDA_HOME, default
-/usr/local/cuda) and a C compiler; no network and no JAX. It
+/usr/local/cuda) and a C compiler; no network, no JAX, and nothing of the
+JAX package libjxl_tpu: the port carries its own host layers. It
 
-1. builds the port's CUDA kernels from libjxl_tpu_torch/ops/csrc;
-2. encodes distinct streams on the host (a process pool): 32 photo-like
-   2048x2048 at d1/e3 with the encoder's default EPF (2 passes), 4 at
-   2048x2048 with epf=3 (the 12-neighbour pass), 2 at 1021x765 (the
-   true-size mirror); each is also decoded by the host reference;
-   and two 512x512 d4 streams (tests/test_ans_kernel.py's generator);
+1. builds the port's native host library (libjxl_tpu_torch/native) and
+   its CUDA kernels from libjxl_tpu_torch/ops/csrc;
+2. encodes distinct streams with the port's host encoder (a process
+   pool): 32 photo-like 2048x2048 at d1/e3 with the encoder's default EPF
+   (2 passes), 4 at 2048x2048 with epf=3 (the 12-neighbour pass), 2 at
+   1021x765 (the true-size mirror); each is also decoded by the port's
+   host decode, the reference; and two 512x512 d4 streams
+   (tests/test_ans_kernel.py's generator);
 3. holds dequant_idct8 and epf_pass against their plain torch twins on
    the card, on the first 16-stream batch's staged inputs, and times both;
 4. holds ans_decode against its twin on the two 512x512 streams (tape,
    ok and steps exactly equal), then runs it at full width on the first
    16-stream batch (1024 lanes): with the placement it must reproduce the
-   host entropy decode's coefficients of all 16 streams exactly;
+   host entropy decode's coefficients of all 16 streams exactly; prints
+   its time, ns a step and share of its bound beside its first port's
+   34.868 ms;
 5. drives the serving decode: decode_pipelined over the 32 streams
    (batch 16) with the launch counters reset just before, then
    decode_batch per batch of 16 and on the epf=3 and 1021x765 sets;
@@ -40,10 +45,12 @@ Needs one CUDA card, nvcc (on PATH or in CUDA_HOME, default
 It prints the phase seconds, the rates (render-only, pipelined
 end-to-end, host-entropy and device-entropy end-to-end MP/s, with the
 device-entropy stages) with the card's name, a line a probe form and the
-K3 split with the card's name and power limit, a JSON line of the kernels,
-the card's nvidia-smi name and power limit, and last {"ok": true,
-"device": {...}}. Any failure raises and exits non-zero; so does a
-machine without CUDA.
+K3 split with the card's name and power limit, a JSON line of the kernels
+(each with its bound: bytes at 3.35 TB/s or operations at 67 TFLOP/s,
+whichever is larger), the card's nvidia-smi name and power limit, and
+last {"ok": true, "device": {...}}. Any failure raises and exits
+non-zero; so does a machine without CUDA, and a run that imported JAX or
+libjxl_tpu.
 """
 
 import json
@@ -59,6 +66,21 @@ ODD_SIZE = (765, 1021)  # (height, width), not multiples of 8
 U8_BOUND = 1  # u8 steps from the host decode (tests/test_decode_batch.py)
 K1_TOL = dict(rtol=1e-5, atol=1e-5)
 K2_TOL = dict(rtol=2e-4, atol=2e-5)  # sum order differs (test_pallas.py)
+# An H100 SXM's peaks (NVIDIA's data sheet): device memory, and fp32
+# outside the tensor cores, the rate integer operations are counted at too
+HBM_BYTES_S = 3.35e12
+FP32_OPS_S = 67e12
+# Operations a unit of work, counted from the plain twins' arithmetic:
+# K1 a coefficient (AdjustQuantBias and dequant 6, two 8-tap IDCT passes
+# 32); K2 a pixel and neighbour (cross-difference 11, weight 3,
+# accumulation 7, plus the SAD pattern's taps) and a pixel (division and
+# skip 4); K3 a step (refill 6, contexts 25, alias entry and state 20,
+# hybrid uint 20, bookkeeping 15, chain advance 10, tape 4); S7 a step.
+K1_OPS = 38
+K2_OPS_NEIGHBOUR, K2_OPS_PIXEL = 21, 4
+K3_OPS_PER_STEP = 100
+S7_OPS_PER_STEP = 6
+K3_PREV_MS = 34.868  # ans_decode's first port on 16 x 2048^2 (PERF.md)
 
 
 def make_image(h, w, seed):
@@ -85,17 +107,16 @@ def small_image(n, seed, noise=3.0):
 def encode_and_reference(job):
     """Pool worker: (h, w, seed, epf) -> (stream, host-decoded u8 RGB);
     epf "small" makes a 512x512 d4 stream of small_image instead."""
-    from libjxl_tpu.api import codestream
+    from libjxl_tpu_torch.api import codestream
 
     h, w, seed, epf = job
     if epf == "small":
         stream = codestream.encode_lossy(small_image(h, seed), distance=4.0,
-                                         effort=3, device=False)
+                                         effort=3)
     else:
         stream = codestream.encode_lossy(make_image(h, w, seed),
-                                         distance=1.0, effort=3,
-                                         device=False, epf=epf)
-    ref = codestream.decode(stream, device=False)[0][:, :, :3]
+                                         distance=1.0, effort=3, epf=epf)
+    ref = codestream.decode(stream)[0][:, :, :3]
     return stream, np.ascontiguousarray(ref)
 
 
@@ -130,6 +151,22 @@ def max_err(got, ref):
     return float((got - ref).abs().max().item())
 
 
+def tensor_bytes(*tensors):
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(nbytes, ops, library_ms=None):
+    """The record keys of a kernel's bound: the larger of its bytes over
+    the device memory rate and its operations over the fp32 rate, in ms,
+    and which of the two it is; library_ms, one PyTorch call's time for
+    the same function where there is one."""
+    by_bytes = nbytes / HBM_BYTES_S * 1e3
+    by_ops = ops / FP32_OPS_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": library_ms}
+
+
 def check_kernels(renderer, inputs, config):
     """Each kernel against its plain twin on the batch's staged inputs;
     returns the JSON records (launches filled in later)."""
@@ -154,6 +191,9 @@ def check_kernels(renderer, inputs, config):
         del got, ref
     k1_ms = cuda_ms(lambda: kernels.dequant_idct8(qimg, *k1_args), 10)
     k1_plain = cuda_ms(lambda: pipeline.decode_xyb_image(qimg, *k1_args), 3)
+    # inputs once, the f32 XYB planes written once
+    k1_bound = bound(tensor_bytes(qimg, qf, dc, ytox, ytob, renderer.dm, igs)
+                     + 4 * qimg.numel(), K1_OPS * qimg.numel())
 
     xyb = pipeline.gaborish(kernels.dequant_idct8(qimg, *k1_args),
                             renderer.gab_kernels)
@@ -177,13 +217,22 @@ def check_kernels(renderer, inputs, config):
         del got, ref
         ms = cuda_ms(lambda: kernels.epf_pass(xyb, isp, *args), 10)
         plain = cuda_ms(lambda: pipeline._epf_pass(xyb, isp_px, *args), 3)
+        pattern_taps = len(pattern) if pattern else 1
+        npx = xyb[:, 0].numel()
+        k2_bound = bound(
+            2 * tensor_bytes(xyb) + tensor_bytes(isp, renderer.sad_mul),
+            npx * (len(neigh) * (K2_OPS_NEIGHBOUR + pattern_taps)
+                   + K2_OPS_PIXEL))
         log(f"check epf_pass {name}: max abs err {err}; {ms:.4f} ms vs "
-            f"plain {plain:.4f} ms")
+            f"plain {plain:.4f} ms; bound {k2_bound['bound_ms']:.4f} ms "
+            f"({k2_bound['bound_by']})")
         k2_err = max(k2_err, err)
-        by_geometry[name] = {"ms": ms, "plain_ms": plain, "max_abs_err": err}
+        by_geometry[name] = {"ms": ms, "plain_ms": plain, "max_abs_err": err,
+                             **k2_bound}
     shape = tuple(qimg.shape)
     log(f"kernel times at B={shape[0]}, {shape[2]}x{shape[3]}: "
-        f"dequant_idct8 {k1_ms:.4f} ms (plain {k1_plain:.4f} ms)")
+        f"dequant_idct8 {k1_ms:.4f} ms (plain {k1_plain:.4f} ms; bound "
+        f"{k1_bound['bound_ms']:.4f} ms, {k1_bound['bound_by']})")
     # the 2-pass main path runs pass1 then pass2; pass1 stands for the
     # kernel in the JSON line, with every geometry beside it
     return [
@@ -191,21 +240,25 @@ def check_kernels(renderer, inputs, config):
          "source": "libjxl_tpu_torch/ops/csrc/dequant_idct8.cu",
          "replaces": "libjxl_tpu/ops/pallas_kernels.py:60",
          "launches": 0, "max_abs_err": k1_err, "ms": k1_ms,
-         "plain_ms": k1_plain},
+         "plain_ms": k1_plain, **k1_bound},
         {"name": "epf_pass", "route": "cuda",
          "source": "libjxl_tpu_torch/ops/csrc/epf.cu",
          "replaces": "libjxl_tpu/ops/pallas_kernels.py:168",
          "launches": 0, "max_abs_err": k2_err,
          "ms": by_geometry["pass1"]["ms"],
          "plain_ms": by_geometry["pass1"]["plain_ms"],
+         **{k: by_geometry["pass1"][k]
+            for k in ("bound_ms", "bound_by", "library_ms")},
          "by_geometry": by_geometry},
     ]
 
 
-def check_ans_decode(small_streams, batch, host_qimg, dev):
+def check_ans_decode(small_streams, batch, host_qimg, dev, card):
     """ans_decode against its twin on the small streams, then at full
     width on `batch`, whose placed coefficients must equal the host
-    entropy decode's `host_qimg`; returns the kernel's JSON record."""
+    entropy decode's `host_qimg`. Logs its time, ns a step and share of
+    its bound on `batch` beside its first port's time; returns its JSON
+    record."""
     import torch
 
     from libjxl_tpu_torch.api import tpu_codec
@@ -251,20 +304,34 @@ def check_ans_decode(small_streams, batch, host_qimg, dev):
     del qimg, ref
     k3_ms = cuda_ms(lambda: kernels.ans_decode(lt), 3)
     place_ms = cuda_ms(lambda: ans_kernel.place(tape, lp), 3)
+    most, done = int(steps.max()), int(steps.sum())
+    # the streams and tables read once; the tape words the lanes write
+    # (their steps, not t_alloc), ok and steps
+    k3_bound = bound(
+        tensor_bytes(lt.flat_hw, lt.lane_off, lt.n_chains, lt.bw,
+                     lt.lane_img, lt.a1, lt.a2, lt.nzclu, lt.zdclu, lt.kz,
+                     lt.cta_first) + 4 * done + 5 * lp.n_lanes,
+        K3_OPS_PER_STEP * done)
+    ns_per_step = k3_ms * 1e6 / most
     full = f"{len(batch)} x {SIZE}^2 d1/e3, {lp.n_lanes} lanes, " \
-        f"{int(steps.max())} steps"
+        f"{most} steps"
     log(f"check ans_decode + place on {full}: qimg of all {len(batch)} "
         f"streams equal to the host entropy decode; prepare_batch_entropy "
         f"{t_plan:.3f} s, ans_decode {k3_ms:.3f} ms, place {place_ms:.3f} "
-        f"ms, steps min {int(steps.min())} max {int(steps.max())}, peak "
-        f"device memory {peak_gb:.2f} GB")
+        f"ms, steps min {int(steps.min())} max {most}, peak device memory "
+        f"{peak_gb:.2f} GB")
+    log(f"K3 ans_decode on {full}: {k3_ms:.3f} ms, {ns_per_step:.2f} ns a "
+        f"step, beside its first port's {K3_PREV_MS} ms; bound "
+        f"{k3_bound['bound_ms']:.4f} ms by {k3_bound['bound_by']}, "
+        f"{100 * k3_bound['bound_ms'] / k3_ms:.2f}% of it; {card}")
     return {"name": "ans_decode", "route": "cuda",
             "source": "libjxl_tpu_torch/ops/csrc/ans_decode.cu",
             "replaces": "libjxl_tpu/ops/ans_kernel.py:283",
             "launches": 0, "max_abs_err": max(tape_err, qimg_err),
             "exact": tape_err == 0 and qimg_err == 0,
-            "ms": k3_ms, "ms_input": full, "plain_ms": plain_ms,
-            "plain_ms_input": small + " (host clock)",
+            "ms": k3_ms, "ms_input": full, "ns_per_step": ns_per_step,
+            "plain_ms": plain_ms,
+            "plain_ms_input": small + " (host clock)", **k3_bound,
             "ms_on_plain_input": small_ms, "place_ms": place_ms}
 
 
@@ -344,7 +411,7 @@ def drive_probes(batch, dev, errs, card):
         f"{prof['floor_ms'][0]:.4f} ms ({prof['floor_ms']} ms; "
         f"{prof['floor_ns_per_step']:.3f} ns a step, fixed "
         f"{prof['floor_fixed_ms']:.4f} ms), twin "
-        f"{prof['floor_plain_ms']:.4f} ms; decode alone "
+        f"{prof['floor_plain_ms']:.4f} ms; beyond the floor "
         f"{prof['decode_ns_per_step']:.3f} ns a step; tape alloc + zero "
         f"fill {prof['tape_zero_fill_ms']:.4f} ms; {card}")
     log(f"S7 place {prof['place_ms']:.4f} ms; pieces on image 0 "
@@ -361,12 +428,16 @@ def drive_probes(batch, dev, errs, card):
         if probe == "S6":
             rec.update({k: wl[k] for k in (
                 "ms", "plain_ms", "graph_ms", "calls", "us_per_launch",
-                "graph_us_per_launch", "plain_us_per_call")})
+                "graph_us_per_launch", "plain_us_per_call",
+                "library_us_per_call")})
+            rec.update(bound(wl["bytes"], 0, wl["library_ms"]))
         else:
             # the probe's first form stands for it; every form beside it
             mine = [r for r, f in zip(forms, gather.FORMS)
                     if f.probe == probe]
             head = mine[0]
+            form = next(f for f in gather.FORMS if f.name == head["name"])
+            rec.update(bound(*gather.form_work(form, head["ms_iters"])))
             rec.update({
                 "ms": head["ms"], "plain_ms": head["plain_ms"],
                 "ms_input": f"{head['name']}, {head['ms_iters']} steps",
@@ -385,6 +456,11 @@ def drive_probes(batch, dev, errs, card):
         "ms_input": f"{prof['images']} x {SIZE}^2 d1/e3, {prof['lanes']} "
                     f"lanes, t_alloc {prof['t_alloc']}",
         "ns_per_step": prof["floor_ns_per_step"],
+        # each step reads two halfwords and writes a tape word; lane_off,
+        # steps and ok once a lane; the CTA table
+        **bound(8 * prof["steps_sum"] + 13 * prof["lanes"]
+                + 4 * (prof["ctas"] + 1),
+                S7_OPS_PER_STEP * prof["steps_sum"]),
         "k3_split": {k: prof[k] for k in (
             "steps_max", "ans_decode_ms", "floor_ms", "step_points",
             "ans_decode_ns_per_step", "ans_decode_fixed_ms",
@@ -414,7 +490,7 @@ def main():
         print("chip_smoke: CUDA is not available; this run needs a GPU",
               file=sys.stderr)
         return 1
-    from libjxl_tpu import native_ext
+    from libjxl_tpu_torch import native_ext
     from libjxl_tpu_torch.api import tpu_codec
     from libjxl_tpu_torch.base.device import (card_line,
                                               reset_launch_counts,
@@ -427,8 +503,8 @@ def main():
     smi = card_line()
     log(f"card: {smi}; torch {torch.__version__} cuda {torch.version.cuda}")
     check(native_ext.get_lib() is not None,
-          "the native host library did not build: host entropy would run "
-          "in pure Python")
+          "the port's native host library did not build: host entropy "
+          "would run in pure Python")
 
     t = time.perf_counter()
     so = build.build()
@@ -472,7 +548,8 @@ def main():
           f"default encode should signal Gaborish + 2 EPF passes: {config}")
     renderer, inputs = tpu_codec.batch_from_numpy(args, config, dev)
     records = check_kernels(renderer, inputs, config)
-    records.append(check_ans_decode(small_s, main_s[:BATCH], args[0], dev))
+    records.append(check_ans_decode(small_s, main_s[:BATCH], args[0], dev,
+                                    smi))
 
     def render_once():
         return renderer(*inputs)
@@ -564,6 +641,8 @@ def main():
 
     check(not any(m == "jax" or m.startswith("jax.") for m in sys.modules),
           "JAX was imported")
+    check(not any(m == "libjxl_tpu" or m.startswith("libjxl_tpu.")
+                  for m in sys.modules), "the JAX package was imported")
     render_mp_s = BATCH * mp_per_image / (render_ms / 1e3)
     pipe_mp_s = len(main_s) * mp_per_image / t_pipe
     host_mp_s = BATCH * mp_per_image / t_host

@@ -1,9 +1,14 @@
 """libjxl_tpu_torch — the PyTorch/CUDA port of libjxl_tpu's device paths.
 
 The JAX package `libjxl_tpu` stays the reference. This package keeps its
-module paths and function names (minus the `_jax` suffix) and reuses
-its host layers (bit I/O, headers, entropy decode, the host render
-helpers) by import. It imports `torch` and never `jax`.
+module paths and function names (minus the `_jax` suffix) and carries its
+own copies of the host layers it needs, at the paths they have there:
+base/status, io/, entropy/, modular/, vardct/, render/, ops/ans_tpu,
+ops/dct, ops/xyb, api/frame, api/codestream (host routes only) and
+native_ext with the C sources in native/, built at first use into
+build/libjxl_tpu_torch/. It imports `torch`, never `jax`, and nothing of
+`libjxl_tpu`. The entry points run on the card unless the caller passes
+device="cpu".
 
   base/device.py      device choice, precision policy, launch counters
   ops/pipeline.py     plain torch decode stages (the kernels' twins)

@@ -3,7 +3,7 @@ libjxl_tpu/api/tpu_codec.py's decode_tpu_batch and
 decode_tpu_batch_entropy paths).
 
 N same-geometry, all-DCT8, XYB streams are entropy-decoded on the host by
-libjxl_tpu's own decoder (prepare_batch), staged as one batch
+the port's copy of the host decoder (prepare_batch), staged as one batch
 (batch_from_numpy), and rendered by one BatchRenderer call: dequant +
 IDCT8 (kernel) -> Gaborish -> EPF passes (kernel) -> sRGB u8.
 decode_pipelined overlaps the host entropy of batch k+1 with the render
@@ -14,7 +14,8 @@ placement of its tape and the same render.
 
 Nothing here probes or imports JAX: the host layers it calls
 (codestream header parsing, decode_vardct_frame, render.pipeline
-helpers, the ops/ans_tpu plan builder) are plain NumPy and C.
+helpers, the ops/ans_tpu plan builder) are the port's own copies of the
+JAX package's NumPy and C host layers.
 """
 
 from __future__ import annotations
@@ -27,19 +28,15 @@ import numpy as np
 import torch
 from torch import nn
 
-from libjxl_tpu.api.codestream import (_skip_or_decode_preview,
-                                       parse_codestream_header)
-from libjxl_tpu.base.status import JXLError
-from libjxl_tpu.io.bits import BitReader
-from libjxl_tpu.io.frame_header import FrameHeader
-from libjxl_tpu.ops import ans_tpu
-from libjxl_tpu.render.pipeline import (_sad_mul_map, compute_sigma,
-                                        gaborish_kernel)
-from libjxl_tpu.vardct import ac_strategy as acs
-from libjxl_tpu.vardct.frame import decode_vardct_frame
-
 from ..base.device import resolve_device
-from ..ops import ans_kernel, kernels, pipeline
+from ..base.status import JXLError
+from ..io.bits import BitReader
+from ..io.frame_header import FrameHeader
+from ..ops import ans_kernel, ans_tpu, kernels, pipeline
+from ..render.pipeline import _sad_mul_map, compute_sigma, gaborish_kernel
+from ..vardct import ac_strategy as acs
+from ..vardct.frame import decode_vardct_frame
+from .codestream import _skip_or_decode_preview, parse_codestream_header
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,7 +258,7 @@ class BatchRenderer(nn.Module):
             pass2_sigma_scale=c.pass2_sigma_scale, true_size=c.true_size)
 
 
-def batch_from_numpy(args, config: BatchConfig, device):
+def batch_from_numpy(args, config: BatchConfig, device="cuda"):
     """The numpy arguments of prepare_batch (or of the JAX path's
     prepare_tpu_batch, which are the same arrays) as a renderer and its
     inputs on `device`: `renderer(*inputs)` renders the batch. qimg may
@@ -313,7 +310,7 @@ def _render(config: BatchConfig, args, device, lap=None) -> list:
     return [u8[i, :th, :tw] for i in range(u8.shape[0])]
 
 
-def decode_batch(streams, device, num_threads: int = 0) -> list:
+def decode_batch(streams, device="cuda", num_threads: int = 0) -> list:
     """Decode N same-geometry all-DCT8 streams with one batched render on
     `device`. Returns uint8 (H, W, 3) images in input order. Raises
     JXLError when the batch is not homogeneous; callers fall back to
@@ -322,7 +319,7 @@ def decode_batch(streams, device, num_threads: int = 0) -> list:
     return _render(config, args, device)
 
 
-def decode_pipelined(streams, device, batch_size: int = 16,
+def decode_pipelined(streams, device="cuda", batch_size: int = 16,
                      num_threads: int = 0) -> list:
     """Pipelined serving decode: the caller's thread entropy-decodes
     batch k+1 (native C, which releases the GIL) while one worker thread
@@ -371,7 +368,8 @@ def _host_fallback(streams, device, reason: str):
     return images, {"path": "host_entropy", "fallback": reason}
 
 
-def decode_batch_entropy(streams, device, stages: dict | None = None):
+def decode_batch_entropy(streams, device="cuda",
+                         stages: dict | None = None):
     """Batch decode with the AC entropy decode on `device` (the port of
     decode_tpu_batch_entropy). Returns (images, info): uint8 (H, W, 3)
     images in input order, and info["path"] == "device_entropy".

@@ -1,7 +1,8 @@
 """Device choice, precision policy and kernel launch counters.
 
-Device: every entry point takes an explicit device and resolves it here.
-Asking for CUDA without a card raises; nothing falls back to the CPU.
+Device: every entry point takes a device, "cuda" unless the caller asks
+for the CPU, and resolves it here. Asking for CUDA without a card raises;
+nothing falls back to the CPU.
 
 Precision: fp32 throughout, with TF32 off for matmuls and cuDNN. This is
 the counterpart of the JAX package's `Precision.HIGHEST`

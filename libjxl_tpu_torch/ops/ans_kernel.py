@@ -1,8 +1,8 @@
 """Device rANS decode of DCT8 AC groups and the placement of its tape (the
 port of libjxl_tpu/ops/ans_kernel.py).
 
-build_lane_plan lays a DecodePlan (libjxl_tpu/ops/ans_tpu.build_plan, the
-shared NumPy host layer) out flat, one lane per AC group, for one thread
+build_lane_plan lays a DecodePlan (ops/ans_tpu.build_plan, the NumPy
+host layer) out flat, one lane per AC group, for one thread
 per lane: the counterpart of build_serve_plan without the TPU's (8, 128)
 sublane packing. ans_decode_plain is the plain torch twin of the CUDA
 kernel ops/csrc/ans_decode.cu (TPU kernel K3, _make_kernel): a lockstep
@@ -23,11 +23,11 @@ import dataclasses
 import numpy as np
 import torch
 
-from libjxl_tpu.ops.ans_kernel import C_BW, C_NCH, C_TSLOT, _dct8_orders
-from libjxl_tpu.ops.ans_tpu import (ANS_LOG, ANS_SIGNATURE, K_FREQ_CTX,
-                                    K_NONZ_CTX, MARKER, NONZERO_BUCKETS,
-                                    TAPE_VAL, ZD_COUNT, AnsTpuUnsupported,
-                                    _bctx_lut_np)
+from ..vardct import ac_strategy as acs
+from .ans_tpu import (ANS_LOG, ANS_SIGNATURE, K_FREQ_CTX, K_NONZ_CTX, MARKER,
+                      NONZERO_BUCKETS, TAPE_VAL, ZD_COUNT, AnsTpuUnsupported,
+                      _bctx_lut_np)
+from .build import CTA_LANES
 
 MAX_LANES = 1024     # the JAX plan's lane grid, 8 x 128
 SLACK_HW = 256       # zero halfwords after each lane's stream
@@ -35,6 +35,8 @@ GROUP_BLOCKS = 32    # DCT8 blocks per group side
 NZ_WIDTH = 3 * NONZERO_BUCKETS
 ZD_WIDTH = 3 * ZD_COUNT
 _M32 = 0xFFFFFFFF
+# the planes of a JAX ServePlan's lane_cfg (libjxl_tpu/ops/ans_kernel.py)
+C_NCH, C_BW, C_TSLOT = 0, 1, 2
 
 
 @dataclasses.dataclass(eq=False)
@@ -66,7 +68,8 @@ class LanePlan:
         return len(self.lane_off)
 
     def to(self, device) -> "LaneTensors":
-        """The decode's inputs as tensors on `device`."""
+        """The decode's inputs as tensors on `device`, with the CTA table
+        of ans_decode.cu (cta_first)."""
 
         def t(a, dtype=None):
             a = np.ascontiguousarray(a if dtype is None else a.view(dtype))
@@ -77,7 +80,8 @@ class LanePlan:
             n_chains=t(self.n_chains), bw=t(self.bw),
             lane_img=t(self.lane_img), a1=t(self.a1, np.int32),
             a2=t(self.a2, np.int32), nzclu=t(self.nzclu),
-            zdclu=t(self.zdclu), kz=t(self.kz), las=self.las,
+            zdclu=t(self.zdclu), kz=t(self.kz),
+            cta_first=t(cta_first(self.lane_img)), las=self.las,
             t_alloc=self.t_alloc)
 
 
@@ -96,8 +100,23 @@ class LaneTensors:
     nzclu: torch.Tensor
     zdclu: torch.Tensor
     kz: torch.Tensor
+    cta_first: torch.Tensor  # i32 [n_cta + 1]: see cta_first()
     las: int
     t_alloc: int
+
+
+def cta_first(lane_img: np.ndarray) -> np.ndarray:
+    """ans_decode.cu's CTAs, in image order: CTA b decodes lanes
+    cta_first[b] .. cta_first[b + 1] - 1, at most CTA_LANES (compiled
+    into the kernel by ops/build.py) of one image, so that it holds one
+    image's tables in shared memory. i32 [n_cta + 1]; lanes are in image
+    order (build_lane_plan)."""
+    lane_img = np.asarray(lane_img)
+    L = len(lane_img)
+    starts = np.flatnonzero(np.r_[True, lane_img[1:] != lane_img[:-1]])
+    ends = np.r_[starts[1:], L]
+    firsts = [np.arange(a, b, CTA_LANES) for a, b in zip(starts, ends)]
+    return np.r_[np.concatenate(firsts), L].astype(np.int32)
 
 
 def _kz_table() -> np.ndarray:
@@ -106,6 +125,19 @@ def _kz_table() -> np.ndarray:
     kz[64:] = K_FREQ_CTX
     kz[0] = kz[64] = 0      # sentinels, never a live context
     return kz
+
+
+def _dct8_orders(plan, si):
+    """(3, 64) inverse order: raster pos -> chain step (0 = DC, unset)."""
+    inv = np.zeros((3, 64), np.int64)
+    for ci in range(3):
+        order = plan.orders[si].get((0, ci))
+        if order is None:
+            order = acs.natural_coeff_order(0)
+        order = np.asarray(order, np.int64)
+        for kk in range(1, 64):
+            inv[ci, order[kk]] = kk
+    return inv
 
 
 def build_lane_plan(plan) -> LanePlan:

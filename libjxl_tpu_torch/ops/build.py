@@ -2,7 +2,9 @@
 
 `nvcc -gencode arch=compute_90a,code=sm_90a -O3 -Xcompiler -fPIC -c`
 compiles each of ops/csrc/*.cu, which expose a plain C interface, in its
-own process, all started together; `nvcc -shared` links the objects into
+own process, all started together (the .cuh headers they include are
+hashed with them), with the lanes a CTA of the rANS decode, CTA_LANES,
+compiled in; `nvcc -shared` links the objects into
 one shared library under build/libjxl_tpu_torch/ at the repository root.
 The file name carries a hash of the sources and flags, so an edited
 source builds anew and an unchanged one is loaded as it is. The build
@@ -22,10 +24,17 @@ import threading
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("dequant_idct8.cu", "epf.cu", "ans_decode.cu", "gather_probe.cu",
            "ans_probe.cu")
+HEADERS = ("ans_ring.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
     / "libjxl_tpu_torch"
+# lanes a CTA of ans_decode.cu (one warp) decodes, all of one image: 1024
+# lanes make 512 CTAs, about one a warp scheduler of the H100
+# (ans_decode.cu's design note); ops/ans_kernel.cta_first builds its CTA
+# table with it
+CTA_LANES = 2
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
+              f"-DJXL_ANS_CTA_LANES={CTA_LANES}")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -41,12 +50,13 @@ _SIGNATURES = {
     "jxl_epf_pass": (_P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _P,
                      _I),
     # flat, total, lane_off, n_chains, bw, lane_img, a1, a2, nzclu, zdclu,
-    # kz, alias_words, las, L, t_alloc, tape, ok, steps, stream, device
+    # kz, alias_words, las, L, t_alloc, cta_first, n_cta, tape, ok, steps,
+    # stream, device
     "jxl_ans_decode": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I, _I,
-                       _I, _I, _P, _P, _P, _P, _I),
-    # the same, with steps an input
+                       _I, _I, _P, _I, _P, _P, _P, _P, _I),
+    # the same arguments; steps is an input
     "jxl_ans_stream_floor": (_P, _L, _P, _P, _P, _P, _P, _P, _P, _P, _P, _I,
-                             _I, _I, _I, _P, _P, _P, _P, _I),
+                             _I, _I, _I, _P, _I, _P, _P, _P, _P, _I),
     # T, gathers, shared, rowcol, table, state, iters, out, stream, device
     "jxl_probe_chain": (_I, _I, _I, _I, _P, _P, _I, _P, _P, _I),
     # depth, rule, mode, win, row_stride, col_mask, state, iters, out,
@@ -80,7 +90,7 @@ def _nvcc() -> str:
 
 def library_path() -> pathlib.Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((_CSRC / name).read_bytes())
     return BUILD_DIR / f"libjxl_kernels_{h.hexdigest()[:16]}.so"

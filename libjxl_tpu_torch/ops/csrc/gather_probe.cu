@@ -27,9 +27,8 @@
 //   noop_kernel        S6 scratch/gather_forms.py wl_pallas: o[0] = a[0],
 //                      the cost of one more launch.
 //
-// Geometry: S1-S4 run K3's launch geometry, 1024 lanes as 32 CTAs of 32
-// threads (ans_decode.cu kThreads), so a lane-step compares directly with
-// a step of ans_decode. Bound: latency. One warp an SM on 32 SMs leaves
+// Geometry: S1-S4 run 1024 lanes as 32 CTAs of 32 threads, so a
+// lane-step compares with a step of ans_decode. Bound: latency. One warp an SM on 32 SMs leaves
 // every load's latency exposed; the probes time exactly that. The TPU
 // workarounds (8 x broadcast+gather+select for a 1024-word table, the
 // one-hot window) do not exist here: a table is indexed directly, and the

@@ -18,9 +18,10 @@ epf_pass (ops/csrc/epf.cu) replaces TPU kernel K2, pallas_kernels.py
   serves every neighbour and SAD tap from on-chip memory.
 ans_decode (ops/csrc/ans_decode.cu) replaces TPU kernel K3,
   ans_kernel.py _make_kernel. Bound by latency: each lane's steps are a
-  serial chain of dependent table loads; one thread per lane, each with
-  its own bit reader on its own stream. Plain twin:
-  ops/ans_kernel.ans_decode_plain.
+  serial chain of dependent table loads; one thread per lane, one-warp
+  CTAs of a few lanes of one image (LaneTensors.cta_first) holding that
+  image's tables, the lanes' row files and cp.async-fed stream rings in
+  shared memory. Plain twin: ops/ans_kernel.ans_decode_plain.
 """
 
 from __future__ import annotations
@@ -175,10 +176,11 @@ def epf_pass(xyb, inv_sigma, sad_mul, channel_scale, neighbors,
     return out[0] if single else out
 
 
-def check_lanes(kernel: str, lt: LaneTensors) -> tuple[int, int]:
+def check_lanes(kernel: str, lt: LaneTensors) -> tuple[int, int, int]:
     """Raise unless every tensor of `lt` lies on one CUDA device,
-    contiguous, with LanePlan.to's dtypes and shapes; returns (lanes,
-    alias words an image)."""
+    contiguous, with LanePlan.to's dtypes and shapes, and flat_hw 16-byte
+    aligned (the stream ring's cp.async); returns (lanes, alias words an
+    image, CTAs)."""
     dev = lt.flat_hw.device
     _require(dev.type == "cuda", f"{kernel}: device {dev}")
     L = lt.lane_off.numel()
@@ -187,6 +189,11 @@ def check_lanes(kernel: str, lt: LaneTensors) -> tuple[int, int]:
     bsz, alias_words = lt.a1.shape
     _require(lt.flat_hw.dim() == 1 and lt.flat_hw.numel() > 0,
              f"{kernel}: flat_hw must be a non-empty vector")
+    _require(lt.flat_hw.data_ptr() % 16 == 0,
+             f"{kernel}: flat_hw is not 16-byte aligned (cp.async)")
+    _require(lt.cta_first.dim() == 1 and lt.cta_first.numel() >= 2,
+             f"{kernel}: cta_first shape {tuple(lt.cta_first.shape)}")
+    n_cta = lt.cta_first.numel() - 1
     _require(4 <= lt.las <= 11, f"{kernel}: las {lt.las}")
     _require(0 < lt.t_alloc and lt.t_alloc * L < 2 ** 31,
              f"{kernel}: t_alloc {lt.t_alloc}")
@@ -200,9 +207,10 @@ def check_lanes(kernel: str, lt: LaneTensors) -> tuple[int, int]:
             ("a2", torch.int32, (bsz, alias_words)),
             ("nzclu", torch.uint8, (bsz, NZ_WIDTH)),
             ("zdclu", torch.uint8, (bsz, ZD_WIDTH)),
-            ("kz", torch.int32, (128,))):
+            ("kz", torch.int32, (128,)),
+            ("cta_first", torch.int32, (n_cta + 1,))):
         _check_cuda(name, getattr(lt, name), dtype, shape, dev)
-    return L, alias_words
+    return L, alias_words, n_cta
 
 
 def ans_decode(lt: LaneTensors):
@@ -215,7 +223,7 @@ def ans_decode(lt: LaneTensors):
     dev = lt.flat_hw.device
     if dev.type == "cpu":
         return ans_decode_plain(lt)
-    L, alias_words = check_lanes("ans_decode", lt)
+    L, alias_words, n_cta = check_lanes("ans_decode", lt)
     tape = torch.zeros((lt.t_alloc, L), dtype=torch.int32, device=dev)
     ok = torch.empty(L, dtype=torch.bool, device=dev)
     steps = torch.empty(L, dtype=torch.int32, device=dev)
@@ -224,7 +232,7 @@ def ans_decode(lt: LaneTensors):
         lt.n_chains.data_ptr(), lt.bw.data_ptr(), lt.lane_img.data_ptr(),
         lt.a1.data_ptr(), lt.a2.data_ptr(), lt.nzclu.data_ptr(),
         lt.zdclu.data_ptr(), lt.kz.data_ptr(), alias_words, lt.las, L,
-        lt.t_alloc, tape.data_ptr(), ok.data_ptr(), steps.data_ptr(),
-        _stream(dev), dev.index))
+        lt.t_alloc, lt.cta_first.data_ptr(), n_cta, tape.data_ptr(),
+        ok.data_ptr(), steps.data_ptr(), _stream(dev), dev.index))
     ANS_DECODE_LAUNCHES.add()
     return tape, ok, steps

@@ -20,12 +20,12 @@ import functools
 import numpy as np
 import torch
 
-from libjxl_tpu.io.headers import (
+from ..io.headers import (
     DEFAULT_INVERSE_OPSIN_MATRIX,
     DEFAULT_QUANT_BIAS,
     OPSIN_ABSORBANCE_BIAS,
 )
-from libjxl_tpu.ops.dct import inv_matrix
+from .dct import inv_matrix
 
 COLOR_TILE_BLOCKS = 8
 # the only chroma-from-luma parameters the batched path admits

@@ -4,10 +4,10 @@
 The TPU probes (scratch/gather_bench.py, gather_bench2.py,
 gather_bench3.py, gather_forms.py) timed one form each of a per-lane
 dependent lookup, the step of a rANS decode, and chose the TPU kernel
-K3's design. Here each form runs at K3's launch geometry (1024 lanes, 32
-CTAs of 32 threads) and is timed by the probes' own method: the marginal
-cost t(5 iters) - t(iters) over 4 iters, so a lane-step compares
-directly with a step of ans_decode.
+K3's design. Here each form runs 1024 lanes as 32 CTAs of 32 threads,
+one warp an SM, and is timed by the probes' own method: the marginal
+cost t(5 iters) - t(iters) over 4 iters, so a lane-step compares with a
+step of ans_decode.
 
 A wrapper given CPU tensors returns its plain twin (a loop of torch ops
 over the same tensors). Given CUDA tensors it launches its kernel on the
@@ -548,6 +548,33 @@ def _forms() -> tuple:
 FORMS = _forms()
 
 
+# Integer operations of one lane-step of each form, counted from its
+# body: S1 a gather is (s >> 4) % T and an add, then * 5 + 7; S2 adds a
+# row/column split; S3 selects from the window and mixes; S4 kA/kB/kC/kE
+# index and add, kD 16 rounds of 6 operations, kF three lookups and 20
+# rounds of 4; S5 index, mod and add.
+OPS_PER_STEP = {"S1": {1: 5, 3: 11}, "S2": 7, "S3": 5,
+                "S4": {"kA": 3, "kB": 3, "kC": 3, "kD": 96, "kE": 3,
+                       "kF": 89},
+                "S5": 3}
+
+
+def form_work(form: Form, iters: int) -> tuple[int, int]:
+    """(bytes, operations) that `iters` steps of `form` need: each input
+    read once and the state written once; the operations of OPS_PER_STEP
+    for every lane."""
+    name, params = form.inputs
+    arrays = probe_inputs(name, **params)
+    nbytes = sum(a.nbytes for a in arrays.values()) \
+        + arrays["state"].nbytes
+    ops = OPS_PER_STEP[form.probe]
+    if form.probe == "S1":
+        ops = ops[form.args["gathers"]]
+    elif form.probe == "S4":
+        ops = ops[form.args["body"]]
+    return nbytes, form.lanes * iters * ops
+
+
 def _once_ms(fn) -> float:
     """Device milliseconds of one fn() (CUDA events around it)."""
     start = torch.cuda.Event(enable_timing=True)
@@ -629,18 +656,25 @@ def check_wl_pallas(device) -> int:
 
 def time_wl_pallas(device) -> dict:
     """Device µs a launch of the no-op kernel: WL_CALLS eager launches,
-    the same captured once in a CUDA graph and replayed, and the twin's
-    WL_CALLS iterations."""
+    the same captured once in a CUDA graph and replayed, the twin's
+    WL_CALLS iterations, and WL_CALLS calls of Tensor.copy_ of row 0, the
+    PyTorch call that computes what a launch does."""
     a = as_tensors(probe_inputs("wl_pallas"), device)["a"]
     graph = WlPallasGraph(a)
     eager = event_ms(lambda: wl_pallas(a))
     replay = event_ms(graph)
     plain = event_ms(lambda: wl_pallas_plain(a))
+    # the one PyTorch call that computes a launch's function: row 0's copy
+    row = torch.empty_like(a[0])
+    library = event_ms(lambda: [row.copy_(a[0]) for _ in range(WL_CALLS)])
     return {"name": "S6 no-op x560", "calls": WL_CALLS, "ms": eager,
-            "graph_ms": replay, "plain_ms": plain,
+            "graph_ms": replay, "plain_ms": plain, "library_ms": library,
+            # each launch reads and writes row 0
+            "bytes": 2 * WL_CALLS * a[0].numel() * a.element_size(),
             "us_per_launch": eager * 1e3 / WL_CALLS,
             "graph_us_per_launch": replay * 1e3 / WL_CALLS,
-            "plain_us_per_call": plain * 1e3 / WL_CALLS}
+            "plain_us_per_call": plain * 1e3 / WL_CALLS,
+            "library_us_per_call": library * 1e3 / WL_CALLS}
 
 
 def check_probes(device) -> dict[str, int]:

@@ -5,7 +5,10 @@ the kernel, its driver's glue and phase 2).
 
 glue launches ops/csrc/ans_probe.cu: ans_decode's data movement (read
 each lane's stream, write its tape) with the decode taken out, at
-ans_decode's arguments and launch geometry; glue_plain is its twin.
+ans_decode's arguments and in its geometry: its CTA table, each lane's
+stream through its cp.async ring in shared memory, two halfwords a step;
+glue_plain is its twin. ans_decode's cost a step less the floor's is the
+decode's own.
 profile_entropy times, with CUDA events, the floor, ans_decode at three
 step caps (a line through them gives the fixed cost and the cost a step),
 the tape's zero-fill and place's pieces. The pieces are torch ops: they
@@ -40,7 +43,7 @@ def glue(lt: LaneTensors, steps: torch.Tensor):
     dev = lt.flat_hw.device
     if dev.type == "cpu":
         return glue_plain(lt, steps)
-    L, alias_words = kernels.check_lanes("glue", lt)
+    L, alias_words, n_cta = kernels.check_lanes("glue", lt)
     _check_cuda("glue: steps", steps, torch.int32, (L,), dev)
     tape = torch.zeros((lt.t_alloc, L), dtype=torch.int32, device=dev)
     ok = torch.empty(L, dtype=torch.bool, device=dev)
@@ -49,8 +52,8 @@ def glue(lt: LaneTensors, steps: torch.Tensor):
         lt.n_chains.data_ptr(), lt.bw.data_ptr(), lt.lane_img.data_ptr(),
         lt.a1.data_ptr(), lt.a2.data_ptr(), lt.nzclu.data_ptr(),
         lt.zdclu.data_ptr(), lt.kz.data_ptr(), alias_words, lt.las, L,
-        lt.t_alloc, tape.data_ptr(), ok.data_ptr(), steps.data_ptr(),
-        _stream(dev), dev.index))
+        lt.t_alloc, lt.cta_first.data_ptr(), n_cta, tape.data_ptr(),
+        ok.data_ptr(), steps.data_ptr(), _stream(dev), dev.index))
     GLUE_LAUNCHES.add()
     return tape, ok
 
@@ -125,10 +128,11 @@ def profile_entropy(streams, device) -> dict:
     capped lane is not ok; only the time is read), as does the
     stream-copy floor glue; a least-squares line through each gives its
     ms a step and its fixed ms. glue_plain, the floor's twin, is timed at
-    the full t_alloc. Also: the tape's allocation and zero-fill
-    as ans_decode makes it, and place's pieces on the first image and
-    summed over the batch (the transpose: of the first image's lanes, and
-    of the batch's), beside the whole place. Needs a CUDA device."""
+    the full t_alloc; the two slopes' difference is the decode's own ns a
+    step. Also: the tape's allocation and zero-fill as ans_decode makes
+    it, and place's pieces on the first image and summed over the batch
+    (the transpose: of the first image's lanes, and of the batch's),
+    beside the whole place. Needs a CUDA device."""
     dev = resolve_device(device)
     _require(dev.type == "cuda", f"profile_entropy: device {dev}; the "
              "profile times a card")
@@ -159,8 +163,10 @@ def profile_entropy(streams, device) -> dict:
     _require(torch.equal(built, placed),
              "profile_entropy: place's pieces do not rebuild place")
     return {
-        "lanes": lp.n_lanes, "images": lp.B, "t_alloc": lp.t_alloc,
+        "lanes": lp.n_lanes, "ctas": lt.cta_first.numel() - 1,
+        "images": lp.B, "t_alloc": lp.t_alloc,
         "steps_max": most, "steps_min": int(steps.min()),
+        "steps_sum": int(steps.sum()),
         "caps": list(caps), "step_points": xs,
         "ans_decode_ms": decode, "floor_ms": floor,
         "ans_decode_ns_per_step": d_slope * 1e6,

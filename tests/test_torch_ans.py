@@ -19,10 +19,11 @@ import torch
 
 from libjxl_tpu.api import codestream
 from libjxl_tpu.api.tpu_codec import decode_tpu_batch_entropy
-from libjxl_tpu.base.status import JXLError
 from libjxl_tpu.ops import ans_kernel as jak
 from libjxl_tpu.ops import ans_tpu
 from libjxl_tpu_torch.api import tpu_codec
+from libjxl_tpu_torch.base.status import JXLError
+from libjxl_tpu_torch.ops import ans_tpu as tans
 from libjxl_tpu_torch.ops import ans_kernel as tak
 from libjxl_tpu_torch.ops import kernels
 from tests.test_ans_kernel import _decode_state, _image, _plan_for
@@ -144,7 +145,7 @@ def test_prepare_batch_entropy_stages_prepare_batch_arrays(case):
 
 def test_out_of_scope_streams_fall_back(case):
     data = codestream.encode_lossy(_image(384, 3), distance=4.0, effort=3)
-    with pytest.raises(ans_tpu.AnsTpuUnsupported, match="multiple of group"):
+    with pytest.raises(tans.AnsTpuUnsupported, match="multiple of group"):
         tak.build_lane_plan(_plan_for([data]))
     imgs, info = tpu_codec.decode_batch_entropy([data], "cpu")
     assert info["path"] == "host_entropy"
@@ -154,7 +155,7 @@ def test_out_of_scope_streams_fall_back(case):
     # the JAX plan's lane grid holds 1024 lanes; the port says so
     wide = types.SimpleNamespace(max_bits_per_sym=21, states=case.plan.states,
                                  n_lanes=1025)
-    with pytest.raises(ans_tpu.AnsTpuUnsupported, match="more than 1024"):
+    with pytest.raises(tans.AnsTpuUnsupported, match="more than 1024"):
         tak.build_lane_plan(wide)
 
 

@@ -95,14 +95,13 @@ def test_decode_batch_on_card_matches_cpu(cuda):
     """The slice on real streams: the card's render (both kernels) within
     one u8 step of the CPU's (the plain twins), one dequant_idct8 launch
     and epf_iters epf_pass launches per batch."""
-    from libjxl_tpu.api import codestream
-    from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.api import codestream, tpu_codec
     from libjxl_tpu_torch.base.device import launch_counts
 
     rng = np.random.default_rng(18)
     streams = [codestream.encode_lossy(
         np.clip(rng.normal(120, 30, (100, 132, 3)), 0, 255).astype(np.uint8),
-        distance=1.0, effort=3, device=False) for _ in range(2)]
+        distance=1.0, effort=3) for _ in range(2)]
     before = launch_counts()
     got = tpu_codec.decode_batch(streams, cuda)
     after = launch_counts()
@@ -115,7 +114,7 @@ def test_decode_batch_on_card_matches_cpu(cuda):
 
 def _entropy_streams(n, seed):
     """n distinct smooth 256x512 streams at d4: two AC groups each."""
-    from libjxl_tpu.api import codestream
+    from libjxl_tpu_torch.api import codestream
 
     rng = np.random.default_rng(seed)
     yy, xx = np.mgrid[0:256, 0:512]
@@ -125,9 +124,37 @@ def _entropy_streams(n, seed):
                + rng.normal(0, 3, (256, 512)))
         rgb = np.stack([img, img * 0.92 + 8, img * 1.05 - 9], axis=-1)
         out.append(codestream.encode_lossy(
-            np.clip(rgb, 0, 255).astype(np.uint8), distance=4.0, effort=3,
-            device=False))
+            np.clip(rgb, 0, 255).astype(np.uint8), distance=4.0, effort=3))
     return out
+
+
+def _d4_lane_plan():
+    """The lane plan of two 512x512 d4 streams (tests/test_ans_kernel.py's
+    generator, chip_smoke.py's small set): 8 lanes, 4 an image."""
+    from libjxl_tpu_torch.api import codestream, tpu_codec
+
+    datas = []
+    for seed in (7, 8):
+        rng = np.random.default_rng(seed)
+        yy, xx = np.mgrid[0:512, 0:512]
+        img = (128 + 50 * np.sin(xx * 0.013) + 40 * np.cos(yy * 0.009)
+               + rng.normal(0, 3.0, (512, 512)))
+        rgb = np.stack([img, img * 0.92 + 8, img * 1.05 - 9], axis=-1)
+        datas.append(codestream.encode_lossy(
+            np.clip(rgb, 0, 255).astype(np.uint8), distance=4.0, effort=3))
+    return tpu_codec.prepare_batch_entropy(datas)[2]
+
+
+def _k3_against_twin(cuda, lp):
+    """ans_decode on the card and its twin on the CPU, one launch:
+    (tape, ok, steps) of each, the kernel's first."""
+    from libjxl_tpu_torch.ops import ans_kernel
+
+    n = kernels.ANS_DECODE_LAUNCHES.count
+    got = [x.cpu() for x in kernels.ans_decode(lp.to(cuda))]
+    torch.cuda.synchronize()
+    assert kernels.ANS_DECODE_LAUNCHES.count == n + 1
+    return got, ans_kernel.ans_decode_plain(lp.to("cpu"))
 
 
 @pytest.mark.cuda
@@ -146,6 +173,53 @@ def test_ans_decode_kernel_matches_plain(cuda):
     assert torch.equal(tape.cpu(), rtape)
     assert torch.equal(ok.cpu(), rok)
     assert torch.equal(steps.cpu(), rsteps)
+
+
+@pytest.mark.cuda
+def test_ans_decode_kernel_matches_plain_on_512_d4(cuda):
+    """K3 on the two 512x512 d4 streams: each CTA stages the tables of
+    the one image its lanes belong to."""
+    from libjxl_tpu_torch.ops import ans_kernel
+
+    lp = _d4_lane_plan()
+    assert lp.n_lanes == 8
+    firsts = ans_kernel.cta_first(lp.lane_img)
+    assert firsts[0] == 0 and firsts[-1] == 8
+    assert all(len(set(lp.lane_img[a:b])) == 1
+               for a, b in zip(firsts, firsts[1:]))
+    (tape, ok, steps), (rtape, rok, rsteps) = _k3_against_twin(cuda, lp)
+    assert rok.all()
+    assert torch.equal(tape, rtape)
+    assert torch.equal(ok, rok) and torch.equal(steps, rsteps)
+
+
+@pytest.mark.cuda
+def test_ans_decode_kernel_flags_corrupt_lane_like_plain(cuda):
+    """A seeded corruption of lane 5's stream: the kernel's tape, ok and
+    steps equal the twin's, and only lane 5 is not ok."""
+    lp = _d4_lane_plan()
+    rng = np.random.default_rng(0)
+    nhw = int(lp.lane_off[6] - lp.lane_off[5]) - 256  # less the slack
+    idx = lp.lane_off[5] + rng.integers(0, nhw, 4)
+    lp.flat_hw[idx] ^= rng.integers(1, 1 << 16, 4).astype(np.uint16)
+    (tape, ok, steps), (rtape, rok, rsteps) = _k3_against_twin(cuda, lp)
+    assert rok.tolist() == [i != 5 for i in range(8)]
+    assert torch.equal(tape, rtape)
+    assert torch.equal(ok, rok) and torch.equal(steps, rsteps)
+
+
+@pytest.mark.cuda
+def test_ans_decode_kernel_clamps_reads_past_the_end_like_plain(cuda):
+    """The halfwords cut short inside the last lane's stream: its reads
+    past the end clamp to the last halfword, in the stream ring's plain
+    fill, as in the twin."""
+    lp = _d4_lane_plan()
+    lp.flat_hw = lp.flat_hw[:int(lp.lane_off[-1]) + 37].copy()
+    lp.t_alloc = 4000  # above the lanes' 3,524 steps; bounds the cut lane
+    (tape, ok, steps), (rtape, rok, rsteps) = _k3_against_twin(cuda, lp)
+    assert rok[:7].all()
+    assert torch.equal(tape, rtape)
+    assert torch.equal(ok, rok) and torch.equal(steps, rsteps)
 
 
 @pytest.mark.cuda

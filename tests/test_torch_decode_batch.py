@@ -12,8 +12,8 @@ import pytest
 
 from libjxl_tpu.api import codestream
 from libjxl_tpu.api.tpu_codec import decode_tpu_batch, prepare_tpu_batch
-from libjxl_tpu.base.status import JXLError
 from libjxl_tpu_torch.api import tpu_codec
+from libjxl_tpu_torch.base.status import JXLError
 
 # (height, width): one group with the qblocks assembly, several groups
 # with the bulk qimg, and a size that is not a multiple of 8 (true-size

@@ -1,0 +1,62 @@
+"""libjxl_tpu_torch and chip_smoke.py stand alone: no file imports the JAX
+package or JAX, at module level or inside a function, and importing every
+module of the port loads neither."""
+
+import ast
+import pathlib
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+FORBIDDEN = ("libjxl_tpu", "jax", "jaxlib")
+SOURCES = sorted((ROOT / "libjxl_tpu_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _imports(path: pathlib.Path):
+    """(line, top-level package) of every absolute import in `path`."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield node.lineno, alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.lineno, node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in SOURCES])
+def test_no_import_of_jax_or_the_jax_package(path):
+    bad = [(line, mod) for line, mod in _imports(path) if mod in FORBIDDEN]
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_walker_sees_imports_inside_functions(tmp_path):
+    src = tmp_path / "m.py"
+    src.write_text("from . import x\n\ndef f():\n"
+                   "    from libjxl_tpu.io import bits\n"
+                   "    import jax.numpy\n")
+    assert list(_imports(src)) == [(4, "libjxl_tpu"), (5, "jax")]
+
+
+_IMPORT_ALL = textwrap.dedent("""
+    import importlib, pkgutil, sys
+    import libjxl_tpu_torch
+    for m in pkgutil.walk_packages(libjxl_tpu_torch.__path__,
+                                   "libjxl_tpu_torch."):
+        importlib.import_module(m.name)
+    bad = sorted(m for m in sys.modules
+                 if m.split(".")[0] in ("libjxl_tpu", "jax", "jaxlib"))
+    print("LOADED", len([m for m in sys.modules
+                         if m.startswith("libjxl_tpu_torch.")]))
+    assert not bad, bad
+""")
+
+
+def test_importing_every_module_loads_neither():
+    res = subprocess.run([sys.executable, "-c", _IMPORT_ALL], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr[-3000:]
+    assert int(res.stdout.split("LOADED")[1]) > 40
