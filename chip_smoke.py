@@ -15,8 +15,13 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    1021x765 (the true-size mirror); each is also decoded by the port's
    host decode, the reference; and two 512x512 d4 streams
    (tests/test_ans_kernel.py's generator);
-3. holds dequant_idct8 and epf_pass against their plain torch twins on
-   the card, on the first 16-stream batch's staged inputs, and times both;
+3. holds dequant_idct8 (int16 and int32) and render_tail (the default
+   chain and epf=3, XYB and u8 out) against their plain torch twins on the
+   card, on the first 16-stream batch's staged inputs, and each EPF pass
+   geometry alone (epf_pass, render_tail's kernel in its one-pass
+   configuration) against _epf_pass; times each beside its twin and its
+   bound, and splits the render (dequant_idct8, the true-size mirror,
+   render_tail) by CUDA events on that batch and on the 1021x765 set;
 4. holds ans_decode against its twin on the two 512x512 streams (tape,
    ok and steps exactly equal), then runs it at full width on the first
    16-stream batch (1024 lanes): with the placement it must reproduce the
@@ -31,8 +36,8 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    stages on one batch;
 7. checks every image against the host decode (at most 1 u8 step), the
    pipelined output against the batched and the device-entropy outputs
-   (exactly), and the launch counts (dequant_idct8 once a batch,
-   epf_pass epf_iters times, ans_decode once a device-entropy batch);
+   (exactly), and the launch counts (dequant_idct8 and render_tail once
+   a batch on every path, ans_decode once a device-entropy batch);
 8. holds every probe kernel (the TPU gather probes S1-S7,
    libjxl_tpu_torch/probes) against its twin, exactly, then drives the
    probes with the counters reset just before: every S1-S5 form timed
@@ -65,6 +70,8 @@ SIZE = 2048
 ODD_SIZE = (765, 1021)  # (height, width), not multiples of 8
 U8_BOUND = 1  # u8 steps from the host decode (tests/test_decode_batch.py)
 K1_TOL = dict(rtol=1e-5, atol=1e-5)
+# each render's kernels, on every path and filter configuration
+RENDER_LAUNCHES = {"dequant_idct8": 1, "render_tail": 1}
 K2_TOL = dict(rtol=2e-4, atol=2e-5)  # sum order differs (test_pallas.py)
 # An H100 SXM's peaks (NVIDIA's data sheet): device memory, and fp32
 # outside the tensor cores, the rate integer operations are counted at too
@@ -72,15 +79,26 @@ HBM_BYTES_S = 3.35e12
 FP32_OPS_S = 67e12
 # Operations a unit of work, counted from the plain twins' arithmetic:
 # K1 a coefficient (AdjustQuantBias and dequant 6, two 8-tap IDCT passes
-# 32); K2 a pixel and neighbour (cross-difference 11, weight 3,
-# accumulation 7, plus the SAD pattern's taps) and a pixel (division and
-# skip 4); K3 a step (refill 6, contexts 25, alias entry and state 20,
-# hybrid uint 20, bookkeeping 15, chain advance 10, tape 4); S7 a step.
+# 32); the render tail a pixel: Gaborish (3 channels x 9 multiply-adds),
+# an EPF pass a neighbour (cross-difference 11, weight 3, accumulation 7,
+# plus the SAD pattern's taps) and a pass a pixel (division and skip 4),
+# the colour epilogue (XYB cubes 14, 3x3 matrix 15, sRGB curve and u8
+# rounding 11); K3 a step (refill 6, contexts 25, alias entry and state
+# 20, hybrid uint 20, bookkeeping 15, chain advance 10, tape 4); S7 a step.
 K1_OPS = 38
+GAB_OPS = 54
 K2_OPS_NEIGHBOUR, K2_OPS_PIXEL = 21, 4
+COLOUR_OPS = 40
 K3_OPS_PER_STEP = 100
 S7_OPS_PER_STEP = 6
 K3_PREV_MS = 34.868  # ans_decode's first port on 16 x 2048^2 (PERF.md)
+
+
+def tail_tol(epf_iters):
+    """K2_TOL compounded over the default chain's filter stages: Gaborish
+    and the EPF passes."""
+    n = 1 + epf_iters
+    return {k: v * n for k, v in K2_TOL.items()}
 
 
 def make_image(h, w, seed):
@@ -167,14 +185,39 @@ def bound(nbytes, ops, library_ms=None):
             "library_ms": library_ms}
 
 
+def tail_work(xyb, isg, sad_mul, gab, passes, out):
+    """(bytes, operations) of a render_tail launch on the batch xyb: each
+    input read once (the XYB, and sigma and the SAD map when a pass reads
+    them), the output written once; the stages' arithmetic counted from
+    the twin."""
+    from libjxl_tpu_torch.ops.pipeline import EPF_GEOMETRY
+
+    npx = xyb[:, 0].numel()
+    nbytes = tensor_bytes(xyb) + (3 if out == "u8srgb" else 12) * npx
+    if passes:
+        nbytes += tensor_bytes(isg, sad_mul)
+    if gab is not None:
+        nbytes += tensor_bytes(gab)
+    ops = GAB_OPS if gab is not None else 0
+    for p in passes:
+        neighbors, pattern = EPF_GEOMETRY[p]
+        ops += len(neighbors) * (K2_OPS_NEIGHBOUR
+                                 + (len(pattern) if pattern else 1)) \
+            + K2_OPS_PIXEL
+    if out == "u8srgb":
+        ops += COLOUR_OPS
+    return nbytes, ops * npx
+
+
 def check_kernels(renderer, inputs, config):
-    """Each kernel against its plain twin on the batch's staged inputs;
-    returns the JSON records (launches filled in later)."""
+    """Each kernel against its plain twin on the batch's staged inputs,
+    timed beside it; returns the JSON records (launches filled in
+    later)."""
     import torch
 
     from libjxl_tpu_torch.ops import kernels, pipeline
 
-    qimg, qf, dc, ytox, ytob, igs, isp = inputs
+    qimg, qf, dc, ytox, ytob, igs, isg = inputs
     k1_args = (qf, dc, ytox, ytob, renderer.dm, igs, config.x_dm_mult,
                config.b_dm_mult)
     k1_err = 0.0
@@ -194,63 +237,132 @@ def check_kernels(renderer, inputs, config):
     # inputs once, the f32 XYB planes written once
     k1_bound = bound(tensor_bytes(qimg, qf, dc, ytox, ytob, renderer.dm, igs)
                      + 4 * qimg.numel(), K1_OPS * qimg.numel())
+    shape = tuple(qimg.shape)
+    log(f"K1 dequant_idct8 at B={shape[0]}, {shape[2]}x{shape[3]}: "
+        f"{k1_ms:.4f} ms (plain {k1_plain:.4f} ms; bound "
+        f"{k1_bound['bound_ms']:.4f} ms, {k1_bound['bound_by']}, "
+        f"{100 * k1_bound['bound_ms'] / k1_ms:.1f}% of it)")
 
-    xyb = pipeline.gaborish(kernels.dequant_idct8(qimg, *k1_args),
-                            renderer.gab_kernels)
+    xyb = kernels.dequant_idct8(qimg, *k1_args)
+    npx = xyb[:, 0].numel()
+    gab = renderer.gab_kernels
+    cs = config.channel_scale
+    s0, s2 = config.pass0_sigma_scale, config.pass2_sigma_scale
+    by_chain = {}
+    for name, iters in (("default", config.epf_iters), ("epf3", 3)):
+        args = (xyb, gab, isg, renderer.sad_mul, cs, iters, s0, s2)
+        got = kernels.render_tail(*args, out="xyb")
+        ref = pipeline.render_tail_plain(*args, out="xyb")
+        torch.cuda.synchronize()
+        tol = tail_tol(iters)
+        err = max_err(got, ref)
+        check(torch.allclose(got, ref, **tol),
+              f"render_tail {name} (XYB) disagrees with render_tail_plain: "
+              f"max abs err {err}")
+        del got, ref
+        got = kernels.render_tail(*args, out="u8srgb")
+        ref = pipeline.render_tail_plain(*args, out="u8srgb")
+        torch.cuda.synchronize()
+        steps = int((got.int() - ref.int()).abs().max())
+        differ = int((got != ref).any(dim=-1).sum())
+        check(steps <= U8_BOUND, f"render_tail {name} (u8) is {steps} steps "
+              f"from render_tail_plain")
+        del got, ref
+        ms = cuda_ms(lambda: kernels.render_tail(*args, out="u8srgb"), 10)
+        plain = cuda_ms(
+            lambda: pipeline.render_tail_plain(*args, out="u8srgb"), 3)
+        rec = bound(*tail_work(xyb, isg, renderer.sad_mul, gab,
+                               pipeline.EPF_CHAINS[iters], "u8srgb"))
+        log(f"check render_tail {name} (Gaborish + epf_iters {iters}): XYB "
+            f"max abs err {err} (rtol {tol['rtol']:g} / atol "
+            f"{tol['atol']:g}); u8 at most {steps} step, {differ} of {npx} "
+            f"pixels differ; {ms:.4f} ms vs plain {plain:.4f} ms; bound "
+            f"{rec['bound_ms']:.4f} ms ({rec['bound_by']}, "
+            f"{100 * rec['bound_ms'] / ms:.1f}% of it)")
+        by_chain[name] = {"epf_iters": iters, "ms": ms, "plain_ms": plain,
+                          "max_abs_err": err, "u8_max_steps": steps,
+                          "u8_pixels_differ": differ, **rec}
+
+    # each pass geometry alone, on the Gaborish output, as the later
+    # single-image render calls it
+    xyb = pipeline.gaborish(xyb, gab)
     h, w = xyb.shape[-2:]
-    isp_px = pipeline._repeat2(isp, 8)[..., :h, :w]
-    geometries = (
-        ("pass0", pipeline._EPF0_NEIGHBORS, pipeline._EPF_PLUS,
-         config.pass0_sigma_scale),
-        ("pass1", pipeline._EPF12_NEIGHBORS, pipeline._EPF_PLUS, 1.0),
-        ("pass2", pipeline._EPF12_NEIGHBORS, None,
-         config.pass2_sigma_scale))
-    k2_err, by_geometry = 0.0, {}
-    for name, neigh, pattern, scale in geometries:
-        args = (renderer.sad_mul, config.channel_scale, neigh, pattern, scale)
-        got = kernels.epf_pass(xyb, isp, *args)
+    isp_px = pipeline._repeat2(isg, 8)[..., :h, :w]
+    scales = {0: s0, 1: 1.0, 2: s2}
+    by_geometry = {}
+    for p, (neigh, pattern) in pipeline.EPF_GEOMETRY.items():
+        args = (renderer.sad_mul, cs, neigh, pattern, scales[p])
+        got = kernels.epf_pass(xyb, isg, *args)
         ref = pipeline._epf_pass(xyb, isp_px, *args)
         torch.cuda.synchronize()
         err = max_err(got, ref)
         check(torch.allclose(got, ref, **K2_TOL),
-              f"epf_pass {name} disagrees with _epf_pass: max abs err {err}")
+              f"epf_pass pass{p} disagrees with _epf_pass: max abs err {err}")
         del got, ref
-        ms = cuda_ms(lambda: kernels.epf_pass(xyb, isp, *args), 10)
+        ms = cuda_ms(lambda: kernels.epf_pass(xyb, isg, *args), 10)
         plain = cuda_ms(lambda: pipeline._epf_pass(xyb, isp_px, *args), 3)
-        pattern_taps = len(pattern) if pattern else 1
-        npx = xyb[:, 0].numel()
-        k2_bound = bound(
-            2 * tensor_bytes(xyb) + tensor_bytes(isp, renderer.sad_mul),
-            npx * (len(neigh) * (K2_OPS_NEIGHBOUR + pattern_taps)
-                   + K2_OPS_PIXEL))
-        log(f"check epf_pass {name}: max abs err {err}; {ms:.4f} ms vs "
-            f"plain {plain:.4f} ms; bound {k2_bound['bound_ms']:.4f} ms "
-            f"({k2_bound['bound_by']})")
-        k2_err = max(k2_err, err)
-        by_geometry[name] = {"ms": ms, "plain_ms": plain, "max_abs_err": err,
-                             **k2_bound}
-    shape = tuple(qimg.shape)
-    log(f"kernel times at B={shape[0]}, {shape[2]}x{shape[3]}: "
-        f"dequant_idct8 {k1_ms:.4f} ms (plain {k1_plain:.4f} ms; bound "
-        f"{k1_bound['bound_ms']:.4f} ms, {k1_bound['bound_by']})")
-    # the 2-pass main path runs pass1 then pass2; pass1 stands for the
-    # kernel in the JSON line, with every geometry beside it
+        rec = bound(*tail_work(xyb, isg, renderer.sad_mul, None, (p,),
+                               "xyb"))
+        log(f"check epf_pass pass{p}: max abs err {err}; {ms:.4f} ms vs "
+            f"plain {plain:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']})")
+        by_geometry[f"pass{p}"] = {"ms": ms, "plain_ms": plain,
+                                   "max_abs_err": err, **rec}
+    del xyb, isp_px
+    main = by_chain["default"]
     return [
         {"name": "dequant_idct8", "route": "cuda",
          "source": "libjxl_tpu_torch/ops/csrc/dequant_idct8.cu",
          "replaces": "libjxl_tpu/ops/pallas_kernels.py:60",
          "launches": 0, "max_abs_err": k1_err, "ms": k1_ms,
          "plain_ms": k1_plain, **k1_bound},
-        {"name": "epf_pass", "route": "cuda",
-         "source": "libjxl_tpu_torch/ops/csrc/epf.cu",
+        # the main path's chain stands for the kernel; epf=3 and the
+        # single passes beside it
+        {"name": "render_tail", "route": "cuda",
+         "source": "libjxl_tpu_torch/ops/csrc/render_tail.cu",
          "replaces": "libjxl_tpu/ops/pallas_kernels.py:168",
-         "launches": 0, "max_abs_err": k2_err,
-         "ms": by_geometry["pass1"]["ms"],
-         "plain_ms": by_geometry["pass1"]["plain_ms"],
-         **{k: by_geometry["pass1"][k]
-            for k in ("bound_ms", "bound_by", "library_ms")},
-         "by_geometry": by_geometry},
+         "launches": 0,
+         "max_abs_err": max(c["max_abs_err"] for c in by_chain.values()),
+         "u8_max_steps": main["u8_max_steps"],
+         **{k: main[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                                 "library_ms")},
+         "by_chain": by_chain, "by_geometry": by_geometry},
     ]
+
+
+def render_split(renderer, inputs, reps=5):
+    """BatchRenderer.forward's kernels and the mirror between them, each
+    timed by CUDA events over `reps` renders after one warm-up: {stage:
+    mean ms}. The calls are decode_render_image's."""
+    import torch
+
+    from libjxl_tpu_torch.ops import kernels, pipeline
+
+    c = renderer.config
+    qimg, qf, dc, ytox, ytob, igs, isg = inputs
+    names = ("dequant_idct8", "true-size mirror", "render_tail")
+    total = dict.fromkeys(names, 0.0)
+    with torch.inference_mode():
+        for rep in range(reps + 1):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            ev[0].record()
+            xyb = kernels.dequant_idct8(qimg, qf, dc, ytox, ytob,
+                                        renderer.dm, igs, c.x_dm_mult,
+                                        c.b_dm_mult)
+            ev[1].record()
+            if c.true_size is not None:
+                pipeline.mirror_to_true_size(xyb, c.true_size)
+            ev[2].record()
+            kernels.render_tail(
+                xyb, renderer.gab_kernels if c.gab else None, isg,
+                renderer.sad_mul, c.channel_scale, c.epf_iters,
+                c.pass0_sigma_scale, c.pass2_sigma_scale, out="u8srgb")
+            ev[3].record()
+            torch.cuda.synchronize()
+            if rep:
+                for name, a, b in zip(names, ev, ev[1:]):
+                    total[name] += a.elapsed_time(b) / reps
+    return total
 
 
 def check_ans_decode(small_streams, batch, host_qimg, dev, card):
@@ -548,6 +660,7 @@ def main():
           f"default encode should signal Gaborish + 2 EPF passes: {config}")
     renderer, inputs = tpu_codec.batch_from_numpy(args, config, dev)
     records = check_kernels(renderer, inputs, config)
+    split = render_split(renderer, inputs)
     records.append(check_ans_decode(small_s, main_s[:BATCH], args[0], dev,
                                     smi))
 
@@ -569,8 +682,7 @@ def main():
     t_pipe = time.perf_counter() - t
     launches = nonzero_counts()
     batches = len(main_s) // BATCH
-    check(launches == {"dequant_idct8": batches,
-                       "epf_pass": batches * config.epf_iters},
+    check(launches == {"dequant_idct8": batches, "render_tail": batches},
           f"main path launches {launches}")
     for rec in records[:2]:
         rec["launches"] = launches[rec["name"]]
@@ -579,21 +691,24 @@ def main():
     for start in range(0, len(main_s), BATCH):
         outs, n = counted(tpu_codec.decode_batch, main_s[start:start + BATCH],
                           dev)
-        check(n == {"dequant_idct8": 1, "epf_pass": config.epf_iters},
-              f"decode_batch launches {n}")
+        check(n == RENDER_LAUNCHES, f"decode_batch launches {n}")
         for a, b in zip(outs, piped[start:start + BATCH]):
             check(np.array_equal(a, b), "pipelined output differs from "
                   "the batched output")
     log("decode_batch per batch of 16 == decode_pipelined, exactly")
 
     outs, n = counted(tpu_codec.decode_batch, epf3_s, dev)
-    check(n == {"dequant_idct8": 1, "epf_pass": 3},
-          f"epf=3 decode_batch launches {n}")
+    check(n == RENDER_LAUNCHES, f"epf=3 decode_batch launches {n}")
     check_images(outs, epf3_r, "decode_batch 2048x2048 epf=3")
     outs, n = counted(tpu_codec.decode_batch, odd_s, dev)
-    check(n == {"dequant_idct8": 1, "epf_pass": 2},
-          f"1021x765 decode_batch launches {n}")
+    check(n == RENDER_LAUNCHES, f"1021x765 decode_batch launches {n}")
     check_images(outs, odd_r, "decode_batch 1021x765 (true-size mirror)")
+    odd_config, odd_args = tpu_codec.prepare_batch(odd_s)
+    check(odd_config.true_size == ODD_SIZE,
+          f"1021x765 true size {odd_config.true_size}")
+    odd_split = render_split(*tpu_codec.batch_from_numpy(odd_args,
+                                                         odd_config, dev))
+    del odd_args
 
     # the device-entropy path, counted
     reset_launch_counts()
@@ -604,14 +719,13 @@ def main():
     t_ent = time.perf_counter() - t
     launches = nonzero_counts()
     check(launches == {"dequant_idct8": batches, "ans_decode": batches,
-                       "epf_pass": batches * config.epf_iters},
+                       "render_tail": batches},
           f"device-entropy path launches {launches}")
     records[2]["launches"] = launches["ans_decode"]
     for i, ((outs, info), n) in enumerate(ent):
         check(info == {"path": "device_entropy"},
               f"decode_batch_entropy batch {i}: {info}")
-        check(n == {"ans_decode": 1, "dequant_idct8": 1,
-                    "epf_pass": config.epf_iters},
+        check(n == {"ans_decode": 1, **RENDER_LAUNCHES},
               f"decode_batch_entropy batch {i} launches {n}")
         for a, b in zip(outs, piped[i * BATCH:(i + 1) * BATCH]):
             check(np.array_equal(a, b), "device-entropy output differs "
@@ -625,8 +739,7 @@ def main():
     (outs, info), n = counted(tpu_codec.decode_batch_entropy,
                               main_s[BATCH:], dev, stages=stages)
     check(info == {"path": "device_entropy"}
-          and n == {"ans_decode": 1, "dequant_idct8": 1,
-                    "epf_pass": config.epf_iters},
+          and n == {"ans_decode": 1, **RENDER_LAUNCHES},
           f"stage-timed decode_batch_entropy: {info}, launches {n}")
     for a, b in zip(outs, piped[BATCH:]):
         check(np.array_equal(a, b), "stage-timed device-entropy output "
@@ -649,6 +762,12 @@ def main():
     log(f"phase render-only (B={BATCH}, {SIZE}x{SIZE}, device-resident "
         f"inputs): {render_ms:.3f} ms, {render_mp_s:.2f} MP/s on {kind}; "
         f"peak device memory {peak_gb:.2f} GB")
+    for label, parts in ((f"B={BATCH}, {SIZE}x{SIZE}", split),
+                         (f"B={len(odd_s)}, {ODD_SIZE[1]}x{ODD_SIZE[0]}",
+                          odd_split)):
+        log(f"phase render split ({label}, CUDA events, mean of 5): "
+            + ", ".join(f"{k} {v:.4f} ms" for k, v in parts.items())
+            + f"; {smi}")
     log(f"phase pipelined end-to-end ({len(main_s)} streams, batch "
         f"{BATCH}): {t_pipe:.3f} s, {pipe_mp_s:.2f} MP/s on {kind}")
     log(f"phase host entropy + staging ({BATCH} streams): {t_host:.3f} s, "

@@ -4,8 +4,9 @@ decode_tpu_batch_entropy paths).
 
 N same-geometry, all-DCT8, XYB streams are entropy-decoded on the host by
 the port's copy of the host decoder (prepare_batch), staged as one batch
-(batch_from_numpy), and rendered by one BatchRenderer call: dequant +
-IDCT8 (kernel) -> Gaborish -> EPF passes (kernel) -> sRGB u8.
+(batch_from_numpy), and rendered by one BatchRenderer call of two
+kernels: dequant + IDCT8 (dequant_idct8), then Gaborish -> EPF passes ->
+sRGB u8 (render_tail).
 decode_pipelined overlaps the host entropy of batch k+1 with the render
 and readback of batch k. decode_batch_entropy moves the AC entropy decode
 onto the device too: the host parses headers, DC and AC metadata
@@ -377,7 +378,7 @@ def decode_batch_entropy(streams, device="cuda",
     On `device`: upload of the lane plan; the rANS decode
     (kernels.ans_decode); the placement of its tape into qimg
     (ans_kernel.place), which never leaves the device; upload of the
-    render arrays; BatchRenderer (dequant_idct8 + epf_pass); one readback
+    render arrays; BatchRenderer (dequant_idct8 + render_tail); one readback
     of the images. The lanes' ok flags and step counts are read back
     before the placement, which reads only the tape rows that some lane
     wrote. A dict `stages` receives each stage's host-clock seconds, the

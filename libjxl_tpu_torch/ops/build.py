@@ -4,7 +4,8 @@
 compiles each of ops/csrc/*.cu, which expose a plain C interface, in its
 own process, all started together (the .cuh headers they include are
 hashed with them), with the lanes a CTA of the rANS decode, CTA_LANES,
-compiled in; `nvcc -shared` links the objects into
+and the render tail's output tile, RENDER_TILE, compiled in; `nvcc
+-shared` links the objects into
 one shared library under build/libjxl_tpu_torch/ at the repository root.
 The file name carries a hash of the sources and flags, so an edited
 source builds anew and an unchanged one is loaded as it is. The build
@@ -22,8 +23,8 @@ import subprocess
 import threading
 
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
-SOURCES = ("dequant_idct8.cu", "epf.cu", "ans_decode.cu", "gather_probe.cu",
-           "ans_probe.cu")
+SOURCES = ("dequant_idct8.cu", "render_tail.cu", "ans_decode.cu",
+           "gather_probe.cu", "ans_probe.cu")
 HEADERS = ("ans_ring.cuh",)
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
     / "libjxl_tpu_torch"
@@ -32,9 +33,16 @@ BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
 # (ans_decode.cu's design note); ops/ans_kernel.cta_first builds its CTA
 # table with it
 CTA_LANES = 2
+# (rows, cols) of render_tail.cu's output tile: 64 columns store a u8 row
+# as 12 16-byte vectors; with the default chain's 4-px halo the CTA's
+# buffers take 54 KB of shared memory, four CTAs an SM (32x64 tiles, two
+# CTAs an SM, took a third longer on the H100: PERF.md)
+RENDER_TILE = (16, 64)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
-              f"-DJXL_ANS_CTA_LANES={CTA_LANES}")
+              f"-DJXL_ANS_CTA_LANES={CTA_LANES}",
+              f"-DJXL_RENDER_TILE_H={RENDER_TILE[0]}",
+              f"-DJXL_RENDER_TILE_W={RENDER_TILE[1]}")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -45,10 +53,10 @@ _SIGNATURES = {
     # b_dm_mult, B, H, W, nty, ntx, out, stream, device
     "jxl_dequant_idct8": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
                           _I, _I, _I, _I, _I, _P, _P, _I),
-    # in, out, inv_sigma, sad_mul, pass, cs0, cs1, cs2, sigma_scale, B, H,
-    # W, stream, device
-    "jxl_epf_pass": (_P, _P, _P, _P, _I, _F, _F, _F, _F, _I, _I, _I, _P,
-                     _I),
+    # in, out, inv_sigma, sad_mul, gab, first, last, u8, cs, sigma_scale,
+    # opsin, cbrt_bias, bias, B, H, W, stream, device
+    "jxl_render_tail": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _F, _F,
+                        _I, _I, _I, _P, _I),
     # flat, total, lane_off, n_chains, bw, lane_img, a1, a2, nzclu, zdclu,
     # kz, alias_words, las, L, t_alloc, cta_first, n_cta, tape, ok, steps,
     # stream, device

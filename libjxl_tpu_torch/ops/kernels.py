@@ -10,12 +10,16 @@ nowhere else.
 dequant_idct8 (ops/csrc/dequant_idct8.cu) replaces TPU kernel K1,
   pallas_kernels.py dequant_cfl_pallas, and fuses the DC insert and
   IDCT8 that XLA did after it. Bound by device memory (~6-12 B read,
-  12 B written a pixel); one CTA per 8x64-px block strip keeps the
-  coefficients in shared memory between dequant and both IDCT passes.
-epf_pass (ops/csrc/epf.cu) replaces TPU kernel K2, pallas_kernels.py
-  epf_pass_pallas. Bound by fp32 arithmetic (up to 180 SAD terms a pixel
-  in pass 0); a 32x16 tile with a mirrored 3-px halo in shared memory
-  serves every neighbour and SAD tap from on-chip memory.
+  12 B written a pixel); a thread owns one 8-coefficient block row
+  (16-byte loads), an 8-lane group a block, both IDCT passes in
+  registers with a shuffle transpose between them.
+render_tail (ops/csrc/render_tail.cu) replaces TPU kernel K2,
+  pallas_kernels.py epf_pass_pallas, and takes in the stages around it:
+  Gaborish, the chained EPF passes and the XYB -> sRGB u8 write, one
+  launch a batch. Bytes and operations bound it about equally; one CTA a
+  16x64 output tile (build.RENDER_TILE) stages the tile and its halo in
+  shared memory and runs the whole chain there. epf_pass is the same
+  kernel in its one-pass configuration, counted under render_tail.
 ans_decode (ops/csrc/ans_decode.cu) replaces TPU kernel K3,
   ans_kernel.py _make_kernel. Bound by latency: each lane's steps are a
   serial chain of dependent table loads; one thread per lane, one-warp
@@ -28,24 +32,20 @@ from __future__ import annotations
 
 import ctypes
 
+import numpy as np
 import torch
 
 from ..base.device import launch_counter
 from . import pipeline
 from .ans_kernel import NZ_WIDTH, ZD_WIDTH, LaneTensors, ans_decode_plain
 from .build import load as load_kernels
-from .pipeline import _EPF0_NEIGHBORS, _EPF12_NEIGHBORS, _EPF_PLUS
 
 DEQUANT_IDCT8_LAUNCHES = launch_counter("dequant_idct8")
-EPF_PASS_LAUNCHES = launch_counter("epf_pass")
+RENDER_TAIL_LAUNCHES = launch_counter("render_tail")
 ANS_DECODE_LAUNCHES = launch_counter("ans_decode")
 
-# (neighbours, SAD pattern) -> the kernel's pass geometry
-_EPF_GEOMETRY = {
-    (_EPF0_NEIGHBORS, _EPF_PLUS): 0,
-    (_EPF12_NEIGHBORS, _EPF_PLUS): 1,
-    (_EPF12_NEIGHBORS, None): 2,
-}
+# (neighbours, SAD pattern) -> the EPF pass of that geometry
+_EPF_GEOMETRY = {geometry: p for p, geometry in pipeline.EPF_GEOMETRY.items()}
 
 
 def dequant_cfl(q_img, scale_img, dm_img, xcc_img, bcc_img):
@@ -122,6 +122,8 @@ def dequant_idct8(qimg, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
     _check_cuda("ytob_map", ytob_map, torch.int32, (bsz, nty, ntx), dev)
     _check_cuda("dm", dm, torch.float32, (3, 8, 8), dev)
     _check_cuda("inv_global_scale", igs, torch.float32, (bsz,), dev)
+    _require(qimg.data_ptr() % 16 == 0 and dm.data_ptr() % 16 == 0,
+             "dequant_idct8: qimg and dm are not 16-byte aligned")
     out = torch.empty((bsz, 3, h, w), dtype=torch.float32, device=dev)
     k = pipeline._consts()
     _launch("dequant_idct8", load_kernels().jxl_dequant_idct8(
@@ -134,14 +136,91 @@ def dequant_idct8(qimg, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
     return out[0] if single else out
 
 
+def _launch_tail(name, xyb, gab_kernels, inv_sigma, sad_mul,
+                 channel_scale, passes, sigma_scales, out):
+    """render_tail.cu's kernel for Gaborish (gab_kernels not None), the
+    EPF `passes` (consecutive, in order) and `out` ("xyb" or "u8srgb") on
+    a CUDA batch; one launch, counted under render_tail."""
+    dev = xyb.device
+    _require(dev.type == "cuda", f"{name}: device {dev}")
+    single = xyb.dim() == 3
+    if single:
+        xyb = xyb.unsqueeze(0)
+        if passes:
+            inv_sigma = inv_sigma.unsqueeze(0)
+    _require(xyb.dim() == 4 and xyb.shape[1] == 3,
+             f"{name}: xyb shape {tuple(xyb.shape)}")
+    bsz, _, h, w = xyb.shape
+    halo = (pipeline.GABORISH_RADIUS if gab_kernels is not None else 0) \
+        + sum(pipeline.epf_radius(p) for p in passes)
+    _require(h >= max(halo, 1) and w >= max(halo, 1),
+             f"{name}: {h}x{w} is below the halo {halo}")
+    _check_cuda("xyb", xyb, torch.float32, (bsz, 3, h, w), dev)
+    if passes:
+        _check_cuda("inv_sigma", inv_sigma, torch.float32,
+                    (bsz, -(-h // 8), -(-w // 8)), dev)
+        _check_cuda("sad_mul", sad_mul, torch.float32, (h, w), dev)
+    if gab_kernels is not None:
+        _check_cuda("gab_kernels", gab_kernels, torch.float32, (3, 3, 3),
+                    dev)
+    cs = np.asarray([float(c) for c in channel_scale], dtype=np.float32)
+    _require(cs.shape == (3,), f"{name}: channel_scale needs 3 values")
+    scales = np.asarray([sigma_scales.get(p, 1.0) for p in range(3)],
+                        dtype=np.float32)
+    if out == "u8srgb":
+        res = torch.empty((bsz, h, w, 3), dtype=torch.uint8, device=dev)
+    else:
+        res = torch.empty_like(xyb)
+    k = pipeline._consts()
+    _launch(name, load_kernels().jxl_render_tail(
+        xyb.data_ptr(), res.data_ptr(),
+        inv_sigma.data_ptr() if passes else None,
+        sad_mul.data_ptr() if passes else None,
+        gab_kernels.data_ptr() if gab_kernels is not None else None,
+        passes[0] if passes else -1, passes[-1] if passes else -1,
+        int(out == "u8srgb"), cs.ctypes.data, scales.ctypes.data,
+        k["opsin_inv"].ctypes.data, float(k["cbrt_bias"]), float(k["bias"]),
+        bsz, h, w, _stream(dev), dev.index))
+    RENDER_TAIL_LAUNCHES.add()
+    return res[0] if single else res
+
+
+def render_tail(xyb, gab_kernels, inv_sigma, sad_mul, channel_scale,
+                epf_iters, pass0_sigma_scale=0.9, pass2_sigma_scale=6.5,
+                out="xyb"):
+    """Gaborish (unless gab_kernels is None) -> the EPF passes of
+    epf_iters -> out: "xyb" f32[..., 3, H, W] or "u8srgb" sRGB u8[..., H,
+    W, 3].
+
+    Plain twin: pipeline.render_tail_plain. On CUDA: xyb f32[B, 3, H, W]
+    (or [3, H, W]) with H, W at least the chain's halo (the stages' summed
+    radii, 4 for Gaborish + 2 passes, 7 at epf_iters 3); gab_kernels f32[3,
+    3, 3], inv_sigma f32[B, ceil(H/8), ceil(W/8)] per block and sad_mul
+    f32[H, W], all contiguous on xyb's device; the result is a new
+    tensor."""
+    _require(out in ("xyb", "u8srgb"), f"render_tail: out {out!r}")
+    _require(epf_iters in pipeline.EPF_CHAINS,
+             f"render_tail: epf_iters {epf_iters}")
+    if xyb.device.type == "cpu":
+        return pipeline.render_tail_plain(
+            xyb, gab_kernels, inv_sigma, sad_mul, channel_scale, epf_iters,
+            pass0_sigma_scale, pass2_sigma_scale, out)
+    return _launch_tail(
+        "render_tail", xyb, gab_kernels, inv_sigma, sad_mul, channel_scale,
+        pipeline.EPF_CHAINS[epf_iters], pipeline._sigma_scales(
+            pass0_sigma_scale, pass2_sigma_scale), out)
+
+
 def epf_pass(xyb, inv_sigma, sad_mul, channel_scale, neighbors,
              sad_pattern, sigma_scale):
     """One EPF pass. inv_sigma is per block, f32[..., ceil(H/8),
     ceil(W/8)]; sad_mul f32[H, W] is shared by the batch.
 
     Plain twin: pipeline._epf_pass on the per-pixel expansion of
-    inv_sigma. On CUDA: xyb f32[B, 3, H, W] (or [3, H, W]) with H, W >= 4,
-    contiguous on one device; the result is a new tensor."""
+    inv_sigma. On CUDA: render_tail's kernel with this pass alone (no
+    Gaborish, XYB out), counted under render_tail; xyb f32[B, 3, H, W] (or
+    [3, H, W]) with H, W at least the pass's radius, contiguous on one
+    device; the result is a new tensor."""
     key = (tuple(map(tuple, neighbors)),
            tuple(map(tuple, sad_pattern)) if sad_pattern else None)
     geometry = _EPF_GEOMETRY.get(key)
@@ -152,28 +231,9 @@ def epf_pass(xyb, inv_sigma, sad_mul, channel_scale, neighbors,
         isp = pipeline._repeat2(inv_sigma, 8)[..., :h, :w]
         return pipeline._epf_pass(xyb, isp, sad_mul, channel_scale,
                                   neighbors, sad_pattern, sigma_scale)
-    dev = xyb.device
-    _require(dev.type == "cuda", f"epf_pass: device {dev}")
-    single = xyb.dim() == 3
-    if single:
-        xyb, inv_sigma = xyb.unsqueeze(0), inv_sigma.unsqueeze(0)
-    _require(xyb.dim() == 4 and xyb.shape[1] == 3,
-             f"epf_pass: xyb shape {tuple(xyb.shape)}")
-    bsz, _, h, w = xyb.shape
-    _require(h >= 4 and w >= 4, f"epf_pass: {h}x{w} is below the halo")
-    _check_cuda("xyb", xyb, torch.float32, (bsz, 3, h, w), dev)
-    _check_cuda("inv_sigma", inv_sigma, torch.float32,
-                (bsz, -(-h // 8), -(-w // 8)), dev)
-    _check_cuda("sad_mul", sad_mul, torch.float32, (h, w), dev)
-    cs = [float(c) for c in channel_scale]
-    _require(len(cs) == 3, "epf_pass: channel_scale needs 3 values")
-    out = torch.empty_like(xyb)
-    _launch("epf_pass", load_kernels().jxl_epf_pass(
-        xyb.data_ptr(), out.data_ptr(), inv_sigma.data_ptr(),
-        sad_mul.data_ptr(), geometry, *cs, float(sigma_scale), bsz, h, w,
-        _stream(dev), dev.index))
-    EPF_PASS_LAUNCHES.add()
-    return out[0] if single else out
+    return _launch_tail("epf_pass", xyb, None, inv_sigma, sad_mul,
+                        channel_scale, (geometry,),
+                        {geometry: float(sigma_scale)}, "xyb")
 
 
 def check_lanes(kernel: str, lt: LaneTensors) -> tuple[int, int, int]:

@@ -13,6 +13,7 @@ import torch
 from libjxl_tpu_torch.ops import kernels
 from libjxl_tpu_torch.ops import pipeline as tpl
 from libjxl_tpu_torch.probes import gather
+from libjxl_tpu_torch.render.pipeline import _sad_mul_map, gaborish_kernel
 
 GEOMETRIES = {
     "pass0": (tpl._EPF0_NEIGHBORS, tpl._EPF_PLUS, 0.9),
@@ -36,6 +37,33 @@ def _epf_inputs(seed, b, h, w):
     isg[:, 0, 1] = -5.0
     sad = rng.uniform(0.8, 1.2, (h, w)).astype(np.float32)
     return xyb, isg, sad
+
+
+def _tail_inputs(seed, b, h, w):
+    """In-gamut XYB at a photo's magnitudes with mild noise, per-block
+    inv_sigma at real streams' values (one block below kMinSigma, so the
+    pass-through runs), the encoder's default Gaborish and SAD map."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    smooth = 0.1 * np.sin(xx * 0.3) * np.cos(yy * 0.2)
+    xyb = np.stack([0.01 * smooth + rng.normal(0, 0.002, (b, h, w)),
+                    0.45 + smooth + rng.normal(0, 0.02, (b, h, w)),
+                    0.40 + 0.5 * smooth + rng.normal(0, 0.02, (b, h, w))],
+                   axis=1).astype(np.float32)
+    isg = rng.uniform(-2.5, -0.3, (b, -(-h // 8), -(-w // 8)))
+    isg[:, 0, -1] = -5.0
+    gab = np.stack([gaborish_kernel(0.115169525, 0.061248592)] * 3)
+    sad = _sad_mul_map(h, w, 2.0 / 3.0)
+    return (xyb, isg.astype(np.float32), gab.astype(np.float32),
+            sad.astype(np.float32))
+
+
+def chain_tol(gab, epf_iters):
+    """K2's tolerance, rtol 2e-4 / atol 2e-5 a pass (the two EPF forms of
+    the reference sum in different orders, tests/test_pallas.py),
+    compounded over the chain's filter stages."""
+    n = max(1, int(gab) + epf_iters)
+    return dict(rtol=2e-4 * n, atol=2e-5 * n)
 
 
 def _dequant_inputs(seed, b, h, w, qdtype=np.int32):
@@ -62,10 +90,14 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("size", [(128, 200), (16, 264), (8, 8)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
 @pytest.mark.parametrize("qdtype", [np.int16, np.int32])
-def test_dequant_idct8_kernel_matches_plain(cuda, qdtype):
-    args = [_t(a).to(cuda) for a in _dequant_inputs(16, 2, 128, 200,
-                                                    qdtype)]
+def test_dequant_idct8_kernel_matches_plain(cuda, qdtype, size):
+    """Widths ragged against the kernel's 32-block CTAs (25, 33, 1
+    blocks): the groups past the edge join the shuffles and store
+    nothing."""
+    args = [_t(a).to(cuda) for a in _dequant_inputs(16, 2, *size, qdtype)]
     n = kernels.DEQUANT_IDCT8_LAUNCHES.count
     got = kernels.dequant_idct8(*args, 0.8, 1.0)
     ref = tpl.decode_xyb_image(*args, 0.8, 1.0)
@@ -77,24 +109,51 @@ def test_dequant_idct8_kernel_matches_plain(cuda, qdtype):
 @pytest.mark.cuda
 @pytest.mark.parametrize("geometry", sorted(GEOMETRIES))
 def test_epf_pass_kernel_matches_plain(cuda, geometry):
+    """Each pass geometry alone: render_tail's kernel in its one-pass
+    configuration, counted under render_tail."""
     neigh, pattern, scale = GEOMETRIES[geometry]
     xyb, isg, sad = _epf_inputs(17, 2, 70, 50)  # ragged against the tile
     isp = np.repeat(np.repeat(isg, 8, 1), 8, 2)[:, :70, :50]
-    n = kernels.EPF_PASS_LAUNCHES.count
+    n = kernels.RENDER_TAIL_LAUNCHES.count
     got = kernels.epf_pass(_t(xyb).to(cuda), _t(isg).to(cuda),
                            _t(sad).to(cuda), CS, neigh, pattern, scale)
     ref = tpl._epf_pass(_t(xyb).to(cuda), _t(isp).to(cuda),
                         _t(sad).to(cuda), CS, neigh, pattern, scale)
     torch.cuda.synchronize()
-    assert kernels.EPF_PASS_LAUNCHES.count == n + 1
+    assert kernels.RENDER_TAIL_LAUNCHES.count == n + 1
     torch.testing.assert_close(got, ref, rtol=2e-4, atol=2e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("size", [(70, 50), (40, 136), (8, 8)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("gab", [False, True], ids=["nogab", "gab"])
+@pytest.mark.parametrize("epf_iters", [0, 1, 2, 3])
+def test_render_tail_kernel_matches_plain(cuda, epf_iters, gab, size):
+    """Every chain, XYB out at K2's compounded tolerance and u8 out within
+    one step, at sizes ragged against the 16x64 tile and at 8x8 (smaller
+    than a tile, at most the halo away from every edge): one launch
+    each."""
+    xyb, isg, gabk, sad = (_t(a).to(cuda) for a in _tail_inputs(
+        50 + epf_iters, 2, *size))
+    args = (xyb, gabk if gab else None, isg, sad, CS, epf_iters, 0.9, 6.5)
+    n = kernels.RENDER_TAIL_LAUNCHES.count
+    got = kernels.render_tail(*args, out="xyb")
+    got_u8 = kernels.render_tail(*args, out="u8srgb")
+    ref = tpl.render_tail_plain(*args, out="xyb")
+    ref_u8 = tpl.render_tail_plain(*args, out="u8srgb")
+    torch.cuda.synchronize()
+    assert kernels.RENDER_TAIL_LAUNCHES.count == n + 2
+    torch.testing.assert_close(got, ref, **chain_tol(gab, epf_iters))
+    assert got_u8.shape == ref_u8.shape and got_u8.dtype == torch.uint8
+    assert (got_u8.int() - ref_u8.int()).abs().max().item() <= 1
 
 
 @pytest.mark.cuda
 def test_decode_batch_on_card_matches_cpu(cuda):
     """The slice on real streams: the card's render (both kernels) within
-    one u8 step of the CPU's (the plain twins), one dequant_idct8 launch
-    and epf_iters epf_pass launches per batch."""
+    one u8 step of the CPU's (the plain twins), one dequant_idct8 and one
+    render_tail launch per batch."""
     from libjxl_tpu_torch.api import codestream, tpu_codec
     from libjxl_tpu_torch.base.device import launch_counts
 
@@ -105,8 +164,9 @@ def test_decode_batch_on_card_matches_cpu(cuda):
     before = launch_counts()
     got = tpu_codec.decode_batch(streams, cuda)
     after = launch_counts()
-    assert after["dequant_idct8"] - before["dequant_idct8"] == 1
-    assert after["epf_pass"] - before["epf_pass"] == 2
+    assert {k: after[k] - before.get(k, 0) for k in after
+            if after[k] != before.get(k, 0)} == {
+        "dequant_idct8": 1, "render_tail": 1}
     for g, c in zip(got, tpu_codec.decode_batch(streams, "cpu")):
         assert g.shape == c.shape == (100, 132, 3)
         assert np.abs(g.astype(int) - c.astype(int)).max() <= 1
@@ -225,7 +285,7 @@ def test_ans_decode_kernel_clamps_reads_past_the_end_like_plain(cuda):
 @pytest.mark.cuda
 def test_decode_batch_entropy_on_card_matches_cpu(cuda):
     """The device-entropy path on the card: one ans_decode, one
-    dequant_idct8 and two epf_pass launches; the card's host-entropy batch
+    dequant_idct8 and one render_tail launch; the card's host-entropy batch
     exactly, the CPU's within one u8 step."""
     from libjxl_tpu_torch.api import tpu_codec
     from libjxl_tpu_torch.base.device import launch_counts
@@ -237,7 +297,7 @@ def test_decode_batch_entropy_on_card_matches_cpu(cuda):
     assert info == {"path": "device_entropy"}
     assert {k: after[k] - before.get(k, 0) for k in after
             if after[k] != before.get(k, 0)} == {
-        "ans_decode": 1, "dequant_idct8": 1, "epf_pass": 2}
+        "ans_decode": 1, "dequant_idct8": 1, "render_tail": 1}
     cpu, cinfo = tpu_codec.decode_batch_entropy(streams, "cpu")
     assert cinfo == {"path": "device_entropy"}
     for g, b, c in zip(got, tpu_codec.decode_batch(streams, cuda), cpu):
