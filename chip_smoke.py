@@ -12,9 +12,12 @@ JAX package libjxl_tpu: the port carries its own host layers. It
 2. encodes distinct streams with the port's host encoder (a process
    pool): 32 photo-like 2048x2048 at d1/e3 with the encoder's default EPF
    (2 passes), 4 at 2048x2048 with epf=3 (the 12-neighbour pass), 2 at
-   1021x765 (the true-size mirror); each is also decoded by the port's
-   host decode, the reference; and two 512x512 d4 streams
-   (tests/test_ans_kernel.py's generator);
+   1021x765 (the true-size mirror); for the single-image path 4 at
+   2048x2048 d1/e5 (dense size passes and 8x8 special tiles), 2 at
+   1021x765 e5, one 1024x1024 e5 and a 2048x2048 4:2:0 YCbCr stream
+   with Gaborish and 2 EPF passes; each but the YCbCr one is also decoded
+   by the port's host decode, the reference; and
+   two 512x512 d4 streams (tests/test_ans_kernel.py's generator);
 3. holds dequant_idct8 (int16 and int32) and render_tail (the default
    chain and epf=3, XYB and u8 out) against their plain torch twins on the
    card, on the first 16-stream batch's staged inputs, and each EPF pass
@@ -38,7 +41,24 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    pipelined output against the batched and the device-entropy outputs
    (exactly), and the launch counts (dequant_idct8 and render_tail once
    a batch on every path, ans_decode once a device-entropy batch);
-8. holds every probe kernel (the TPU gather probes S1-S7,
+8. drives the single-image path, codestream.decode(..., device="cuda"),
+   with the counters reset just before: the e5 frames, the YCbCr frame
+   and the 23 conformance streams, each with the path record the JAX
+   package's device decode gives (device:u8, device:xyb for the
+   true-size crop, device:u8-ycbcr, host:<reason>), within 1 u8 step of
+   the host decode (the corpus also within its oracle bounds; the
+   filtered YCbCr frame of decode(..., device="cpu"), the same render on
+   the plain twins), and
+   dequant_idct8 + render_tail once an XYB frame, render_tail once a
+   YCbCr frame; splits one 2048x2048 e5 frame's latency (host entropy +
+   staging, then upload, K1, size passes, extra tiles, mirror,
+   render_tail, readback by CUDA events), holds K1 and K2 against their
+   twins on that frame, and prints MP/s beside the host decode; then
+   codestream.decode_batch(..., device="cuda") on an interleaved list of
+   16 x 2048x2048 e3, 2 x 1021x765 e3 and the 1024x1024 e5 stream: it
+   buckets, each e3 bucket one batched render equal to the same batch's
+   own, the e5 singleton through decode, order kept;
+9. holds every probe kernel (the TPU gather probes S1-S7,
    libjxl_tpu_torch/probes) against its twin, exactly, then drives the
    probes with the counters reset just before: every S1-S5 form timed
    at its TPU probe's step count (ns per lane-step, the marginal cost
@@ -68,6 +88,8 @@ import numpy as np
 BATCH = 16
 SIZE = 2048
 ODD_SIZE = (765, 1021)  # (height, width), not multiples of 8
+E5_FRAMES = 4  # 2048^2 d1/e5 frames of the single-image path
+MIXED_E5 = 1024  # the side of the e5 singleton in the mixed decode_batch
 U8_BOUND = 1  # u8 steps from the host decode (tests/test_decode_batch.py)
 K1_TOL = dict(rtol=1e-5, atol=1e-5)
 # each render's kernels, on every path and filter configuration
@@ -122,19 +144,70 @@ def small_image(n, seed, noise=3.0):
     return np.clip(rgb, 0, 255).astype(np.uint8)
 
 
+def ycbcr_stream(h, w, seed):
+    """A 4:2:0 YCbCr VarDCT stream of make_image (the layout of a JPEG
+    transcode) with Gaborish and 2 EPF passes, so that render_tail filters
+    the block-padded luma-size planes; built as tests/test_decode_path.py
+    builds its subsampled stream, with the port's encoder."""
+    from libjxl_tpu_torch.api.codestream import write_codestream_header
+    from libjxl_tpu_torch.io.bits import BitWriter
+    from libjxl_tpu_torch.io.frame_header import (
+        CT_YCBCR, ENC_VARDCT, FLAG_SKIP_ADAPTIVE_DC_SMOOTHING, FT_REGULAR,
+        FrameHeader)
+    from libjxl_tpu_torch.io.headers import CodecMetadata, SizeHeader
+    from libjxl_tpu_torch.vardct.frame import rgb_to_ycbcr
+    from libjxl_tpu_torch.vardct.subsampled import encode_vardct_subsampled
+
+    meta = CodecMetadata()
+    meta.size = SizeHeader().set(w, h)
+    meta.m.all_default = False
+    meta.m.xyb_encoded = False
+    writer = BitWriter()
+    write_codestream_header(writer, meta)
+    fh = FrameHeader(meta)
+    fh.all_default = False
+    fh.frame_type = FT_REGULAR
+    fh.encoding = ENC_VARDCT
+    fh.color_transform = CT_YCBCR
+    fh.chroma_subsampling.channel_mode = [0, 1, 0]  # 4:2:0
+    fh.flags = FLAG_SKIP_ADAPTIVE_DC_SMOOTHING
+    fh.loop_filter.all_default = False
+    fh.loop_filter.gab = True
+    fh.loop_filter.epf_iters = 2
+    ycbcr = rgb_to_ycbcr(np.moveaxis(
+        make_image(h, w, seed).astype(np.float64) / 255, -1, 0))
+    planes = []
+    for c in range(3):
+        fy = 1 << fh.chroma_subsampling.vshift(c)
+        fx = 1 << fh.chroma_subsampling.hshift(c)
+        h2, w2 = h // fy * fy, w // fx * fx
+        planes.append(ycbcr[c][:h2, :w2].reshape(
+            h2 // fy, fy, w2 // fx, fx).mean(axis=(1, 3)))
+    encode_vardct_subsampled(writer, planes, fh, distance=1.0)
+    return writer.get_bytes()
+
+
 def encode_and_reference(job):
-    """Pool worker: (h, w, seed, epf) -> (stream, host-decoded u8 RGB);
-    epf "small" makes a 512x512 d4 stream of small_image instead."""
+    """Pool worker: (h, w, seed, kind) -> (stream, host-decoded u8 RGB).
+    kind None or 3: d1/e3 with that EPF setting; "e5": d1 at effort 5;
+    "ycbcr": ycbcr_stream, with None for its reference (drive_single
+    renders it on the CPU); "small": a 512x512 d4 stream of
+    small_image."""
     from libjxl_tpu_torch.api import codestream
 
-    h, w, seed, epf = job
-    if epf == "small":
+    h, w, seed, kind = job
+    if kind == "small":
         stream = codestream.encode_lossy(small_image(h, seed), distance=4.0,
                                          effort=3)
+    elif kind == "e5":
+        stream = codestream.encode_lossy(make_image(h, w, seed),
+                                         distance=1.0, effort=5)
+    elif kind == "ycbcr":
+        return ycbcr_stream(h, w, seed), None
     else:
         stream = codestream.encode_lossy(make_image(h, w, seed),
-                                         distance=1.0, effort=3, epf=epf)
-    ref = codestream.decode(stream)[0][:, :, :3]
+                                         distance=1.0, effort=3, epf=kind)
+    ref = codestream.decode(stream, device=None)[0][:, :, :3]
     return stream, np.ascontiguousarray(ref)
 
 
@@ -330,39 +403,39 @@ def check_kernels(renderer, inputs, config):
     ]
 
 
-def render_split(renderer, inputs, reps=5):
-    """BatchRenderer.forward's kernels and the mirror between them, each
-    timed by CUDA events over `reps` renders after one warm-up: {stage:
-    mean ms}. The calls are decode_render_image's."""
+def stage_ms(run, reps=5):
+    """The device milliseconds of each stage of run(mark), by CUDA events,
+    mean of `reps` runs after one warm-up, and run's last result. run
+    calls mark(stage, tensor) as each stage's work is queued (the hook of
+    pipeline.decode_render_image); a stage is timed from the previous
+    mark, or from the run's start."""
     import torch
 
-    from libjxl_tpu_torch.ops import kernels, pipeline
-
-    c = renderer.config
-    qimg, qf, dc, ytox, ytob, igs, isg = inputs
-    names = ("dequant_idct8", "true-size mirror", "render_tail")
-    total = dict.fromkeys(names, 0.0)
+    total = {}
     with torch.inference_mode():
         for rep in range(reps + 1):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
-            ev[0].record()
-            xyb = kernels.dequant_idct8(qimg, qf, dc, ytox, ytob,
-                                        renderer.dm, igs, c.x_dm_mult,
-                                        c.b_dm_mult)
-            ev[1].record()
-            if c.true_size is not None:
-                pipeline.mirror_to_true_size(xyb, c.true_size)
-            ev[2].record()
-            kernels.render_tail(
-                xyb, renderer.gab_kernels if c.gab else None, isg,
-                renderer.sad_mul, c.channel_scale, c.epf_iters,
-                c.pass0_sigma_scale, c.pass2_sigma_scale, out="u8srgb")
-            ev[3].record()
+            events = [(None, torch.cuda.Event(enable_timing=True))]
+            events[0][1].record()
+
+            def mark(stage, _tensor=None, events=events):
+                ev = torch.cuda.Event(enable_timing=True)
+                ev.record()
+                events.append((stage, ev))
+            out = run(mark)
             torch.cuda.synchronize()
             if rep:
-                for name, a, b in zip(names, ev, ev[1:]):
-                    total[name] += a.elapsed_time(b) / reps
-    return total
+                for (_, a), (stage, b) in zip(events, events[1:]):
+                    total[stage] = total.get(stage, 0.0) \
+                        + a.elapsed_time(b) / reps
+    return total, out
+
+
+def render_split(renderer, inputs, reps=5):
+    """BatchRenderer.forward's stages (pipeline.RENDER_STAGES: the kernels,
+    the true-size mirror between them, and the strategy stages, empty on
+    an all-DCT8 batch), each timed by CUDA events over `reps` renders
+    after one warm-up: {stage: mean ms}."""
+    return stage_ms(lambda mark: renderer(*inputs, mark=mark), reps)[0]
 
 
 def check_ans_decode(small_streams, batch, host_qimg, dev, card):
@@ -595,6 +668,302 @@ def check_images(outs, refs, label):
         "decode")
 
 
+def capture_frame(stream):
+    """The host half of decode(..., device=...) on the first frame of
+    `stream`: headers and the entropy decode, the frame's state kept for
+    the device (api/tpu_codec.make_device_render's input). Returns
+    (state, frame header)."""
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.io.bits import BitReader
+    from libjxl_tpu_torch.io.frame_header import FrameHeader
+    from libjxl_tpu_torch.vardct.frame import decode_vardct_frame
+
+    r = BitReader(stream)
+    fh = FrameHeader(codestream.parse_codestream_header(r))
+    fh.read(r)
+    cap = {}
+
+    def capture(state):
+        cap["state"] = state
+        state.restoration_done = state.device_output_done = True
+
+    decode_vardct_frame(r, fh, render_fn=capture, want_qimg=True)
+    return cap["state"], fh
+
+
+def single_split(stream, dev, reps=5):
+    """decode(stream, device=dev)'s render of one XYB frame, split: the
+    host entropy decode + staging (host clock), then each device stage
+    by CUDA events, mean of `reps` after one warm-up: upload,
+    pipeline.decode_render_image's stages through its mark hook (K1, the
+    size passes, the extra tiles, the true-size mirror, render_tail with
+    u8 out), readback. Returns (host s, {stage: ms}, u8 image, the staged
+    inputs)."""
+    from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.ops import pipeline
+
+    t = time.perf_counter()
+    state, fh = capture_frame(stream)
+    staged = tpu_codec.stage_image(state, fh, True)
+    host_s = time.perf_counter() - t
+    check(staged is not None, "the frame's layout keeps it on the host")
+
+    def run(mark):
+        args, kw = tpu_codec.to_device(staged, dev)
+        mark("upload")
+        u8 = pipeline.decode_render_image(*args, **kw, mark=mark)
+        img = u8.cpu().numpy()
+        mark("readback")
+        return img
+
+    split, img = stage_ms(run, reps)
+    return host_s, split, img, staged
+
+
+def check_single_kernels(staged, dev):
+    """K1 and K2 against their plain twins on one frame's inputs (the
+    single-image path's shapes: [3, H, W], one CfL map), timed beside
+    them and their bounds. Returns {kernel: record}."""
+    import torch
+
+    from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.ops import kernels, pipeline
+
+    args, kw = tpu_codec.to_device(staged, dev)
+    qimg, qf, dc, ytox, ytob, dm, igs, xdm, bdm, gab, isg, sad, cs, epf = \
+        args
+    k1_args = (qimg, qf, dc, ytox, ytob, dm, igs, xdm, bdm)
+    with torch.inference_mode():
+        got = kernels.dequant_idct8(*k1_args)
+        ref = pipeline.decode_xyb_image(*k1_args)
+        torch.cuda.synchronize()
+        k1_err = max_err(got, ref)
+        check(torch.allclose(got, ref, **K1_TOL), f"dequant_idct8 on one "
+              f"frame disagrees with decode_xyb_image: max abs err {k1_err}")
+        k1 = {"max_abs_err": k1_err,
+              "ms": cuda_ms(lambda: kernels.dequant_idct8(*k1_args), 10),
+              "plain_ms": cuda_ms(
+                  lambda: pipeline.decode_xyb_image(*k1_args), 3),
+              **bound(tensor_bytes(qimg, qf, dc, ytox, ytob, dm)
+                      + 4 + 4 * qimg.numel(), K1_OPS * qimg.numel())}
+        # the frame's XYB as render_tail gets it in decode_render_image
+        check(bool(kw["size_passes"]) and bool(kw["extra_tiles"]),
+              "the e5 frame has no size pass or no extra tile")
+        stages = {}
+        pipeline.decode_render_image(
+            *args, **kw, mark=lambda stage, t: stages.setdefault(stage, t))
+        xyb = stages["true-size mirror"]
+        tail = (xyb, gab, isg, sad, cs, epf, kw["pass0_sigma_scale"],
+                kw["pass2_sigma_scale"])
+        got = kernels.render_tail(*tail, out="xyb")
+        ref = pipeline.render_tail_plain(*tail, out="xyb")
+        torch.cuda.synchronize()
+        tol = tail_tol(epf)
+        k2_err = max_err(got, ref)
+        check(torch.allclose(got, ref, **tol), f"render_tail on one frame "
+              f"(XYB) disagrees with render_tail_plain: max abs err {k2_err}")
+        got = kernels.render_tail(*tail, out="u8srgb")
+        ref = pipeline.render_tail_plain(*tail, out="u8srgb")
+        torch.cuda.synchronize()
+        steps = int((got.int() - ref.int()).abs().max())
+        check(steps <= U8_BOUND, f"render_tail on one frame (u8) is {steps} "
+              "steps from render_tail_plain")
+        xyb4 = xyb[None]
+        k2 = {"max_abs_err": k2_err, "u8_max_steps": steps,
+              "ms": cuda_ms(lambda: kernels.render_tail(*tail,
+                                                        out="u8srgb"), 10),
+              "plain_ms": cuda_ms(lambda: pipeline.render_tail_plain(
+                  *tail, out="u8srgb"), 3),
+              **bound(*tail_work(xyb4, isg, sad, gab,
+                                 pipeline.EPF_CHAINS[epf], "u8srgb"))}
+    return {"dequant_idct8": k1, "render_tail": k2}
+
+
+# The JAX package's decode(..., device=True) path records on the corpus
+# streams (tests/test_torch_device_decode.py holds the port to them on the
+# CPU); any stream not named renders "device:u8"
+CORPUS_PATHS = {
+    "lossy_modular_d1_e5": "host:modular",
+    "lossy_flat_d1_e7": "host:unaligned/odd-size transform layout",
+    "lossy_gray_d1_e7": "host:unaligned/odd-size transform layout",
+    "lossy_rgba_d1_e7": "device:xyb", "lossy_noise_d1_e5": "device:xyb",
+    "lossy_hi16_d1_e5": "device:xyb", "jpeg_recon": "device:u8-ycbcr"}
+PATH_LAUNCHES = {"device:u8": RENDER_LAUNCHES, "device:xyb": RENDER_LAUNCHES,
+                 "device:u8-ycbcr": {"render_tail": 1}}
+
+
+def oracle_bounds(case):
+    """tests/test_conformance_oracle.py's (RMSE, peak) bounds of a lossy
+    corpus case against the reference decoder's pixels."""
+    dist = float(case.get("encode_args", {}).get("distance", 1.0))
+    if dist >= 4.0:
+        return 0.5 * dist, int(2 * dist)
+    if "noise" in case["name"]:
+        return 0.75, 2
+    return 0.2, 2
+
+
+def near_host(got, ref, label):
+    """At most U8_BOUND steps from the host decode and, for u8, fewer than
+    one pixel value in 1,000 off (tests/test_tpu_codec.py's bound)."""
+    check(got.shape == ref.shape and got.dtype == ref.dtype,
+          f"{label}: {got.shape} {got.dtype} != host {ref.shape} "
+          f"{ref.dtype}")
+    diff = np.abs(got.astype(np.int32) - ref.astype(np.int32))
+    share = float((diff != 0).mean())
+    check(int(diff.max()) <= U8_BOUND
+          and (got.dtype != np.uint8 or share < 1e-3),
+          f"{label}: {int(diff.max())} steps, {share:.2e} of values off "
+          "the host decode")
+    return int(diff.max()), share
+
+
+def drive_single(e5, odd5, ycc, dev, smi):
+    """The single-image path: codestream.decode(..., device=dev) on the
+    2048^2 e5 frames, the 1021x765 e5 frames, the 2048^2 4:2:0 YCbCr
+    frame and the conformance corpus, each a (stream, host u8) list, with
+    the counters reset just before and read just after. Checks each
+    frame's path record, pixels and launches; prints the latency split
+    of one 2048^2 frame, its kernels against their twins and the MP/s
+    beside the host decode. Returns (launches on the path, the kernels'
+    single-image records)."""
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    corpus_dir = os.path.join(root, "tests", "data", "conformance")
+    with open(os.path.join(corpus_dir, "manifest.json")) as f:
+        cases = [c for c in json.load(f)["cases"]
+                 if c["kind"] != "lossless"]
+    corpus = []
+    for case in cases:
+        with open(os.path.join(corpus_dir, case["name"] + ".jxl"),
+                  "rb") as f:
+            data = f.read()
+        corpus.append((case, data, codestream.decode(data, device=None)[0]))
+    # the filtered YCbCr frame's reference is the same render on the CPU
+    # (the plain twins): the JAX package's own device and host renders of
+    # such a frame differ by up to 2 steps (its device path filters the
+    # block-padded planes)
+    ycc = (ycc[0], codestream.decode(ycc[0], device="cpu")[0])
+    # the frames' expected (label, record): the true-size crop keeps the
+    # 1021x765 write on the host (XYB back)
+    frames = ([(f"{SIZE}x{SIZE} e5 #{i}", "device:u8", s, r)
+               for i, (s, r) in enumerate(e5)]
+              + [(f"{ODD_SIZE[1]}x{ODD_SIZE[0]} e5 #{i}", "device:xyb", s, r)
+                 for i, (s, r) in enumerate(odd5)]
+              + [(f"{SIZE}x{SIZE} 4:2:0 YCbCr", "device:u8-ycbcr", *ycc)]
+              + [(c["name"], CORPUS_PATHS.get(c["name"], "device:u8"), d, r)
+                 for c, d, r in corpus])
+    outs, secs = {}, {}
+    reset_launch_counts()
+    for label, path, data, _ in frames:
+        info = {}
+        t = time.perf_counter()
+        (img, _), n = counted(codestream.decode, data, device=dev,
+                              decode_info=info)
+        secs[label] = time.perf_counter() - t
+        check(info["path"] == path, f"{label}: path {info['path']}, the "
+              f"JAX package's is {path}")
+        check(n == PATH_LAUNCHES.get(path, {}),
+              f"{label} ({path}) launches {n}")
+        outs[label] = img
+    launches = nonzero_counts()
+    want = {}
+    for _, path, _, _ in frames:
+        for k, v in PATH_LAUNCHES.get(path, {}).items():
+            want[k] = want.get(k, 0) + v
+    check(launches == want, f"single-image path launches {launches}, "
+          f"expected {want}")
+    worst = {}
+    for label, path, _, ref in frames:
+        got = outs[label]
+        if ref.ndim == 3 and ref.shape[2] == 3 and got.shape[2] > 3:
+            got = got[:, :, :3]
+        worst[label] = near_host(got, ref, f"decode(device) {label}"
+                                 + (" vs device='cpu'" if "YCbCr" in label
+                                    else ""))
+    for case, _, _ in corpus:
+        if case["kind"] != "lossy":
+            continue  # jpeg_recon: its bound is the host decode's above
+        oracle = np.load(os.path.join(corpus_dir, case["name"] + ".npy"))
+        got = outs[case["name"]]
+        nc = min(got.shape[2], oracle.shape[2])
+        d = got[:, :, :nc].astype(np.float64) - oracle[:, :, :nc]
+        rmse, peak = float(np.sqrt((d ** 2).mean())), int(np.abs(d).max())
+        limit, peak_limit = oracle_bounds(case)
+        check(rmse < limit and peak <= peak_limit,
+              f"{case['name']}: RMSE {rmse} peak {peak} against the "
+              f"reference decoder (bounds {limit}, {peak_limit})")
+    log(f"decode(device) single-image path: {len(frames)} frames, paths "
+        "as the JAX package's, launches " + json.dumps(launches)
+        + "; worst (steps, share off) from the host decode (the YCbCr "
+        "frame: from decode(device='cpu')): "
+        + ", ".join(f"{k} {v[0]} {v[1]:.2e}" for k, v in worst.items()
+                    if not k.startswith(("lossy", "jpeg"))))
+
+    host_s, split, img, staged = single_split(e5[0][0], dev)
+    check(np.array_equal(img, outs[frames[0][0]]),
+          "the split's stages differ from decode(device)'s output")
+    total_ms = sum(split.values())
+    log(f"phase single-image split ({SIZE}x{SIZE} d1/e5, one frame): host "
+        f"entropy + staging {host_s * 1e3:.2f} ms (host clock); "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+        + f"; device stages {total_ms:.4f} ms (CUDA events, mean of 5); "
+        f"{smi}")
+    single = check_single_kernels(staged, dev)
+    for name, rec in single.items():
+        log(f"check {name} on one {SIZE}x{SIZE} e5 frame: max abs err "
+            f"{rec['max_abs_err']}; {rec['ms']:.4f} ms vs plain "
+            f"{rec['plain_ms']:.4f} ms; bound {rec['bound_ms']:.4f} ms "
+            f"({rec['bound_by']}, "
+            f"{100 * rec['bound_ms'] / rec['ms']:.1f}% of it); {smi}")
+    t = time.perf_counter()
+    codestream.decode(e5[0][0], device=None)
+    host_decode_s = time.perf_counter() - t
+    mp = SIZE * SIZE / 1e6
+    dev_s = [secs[f[0]] for f in frames[:len(e5)]]
+    log(f"phase single-image decode ({SIZE}x{SIZE} d1/e5, host clock): "
+        f"decode(device) {min(dev_s):.3f} s best of {len(dev_s)} (mean "
+        f"{np.mean(dev_s):.3f}), {mp / min(dev_s):.2f} MP/s; host decode "
+        f"{host_decode_s:.3f} s, {mp / host_decode_s:.2f} MP/s; {smi}")
+    return launches, single
+
+
+def drive_mixed_batch(main16, odd, e5_1024, piped16, odd_outs, dev):
+    """codestream.decode_batch(..., device=dev) on an interleaved mixed
+    list: 16 x 2048^2 e3, 2 x 1021x765 e3 and one 1024^2 e5, each a
+    (stream, host u8) list, with the counters reset just before. The list
+    fails the batch gate, so the call buckets: each e3 bucket is one
+    batched render (equal to the same batch's earlier render), the e5
+    singleton goes through decode(device); order is kept."""
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+
+    order = ([("m", 0), ("o", 0), ("e", 0)] + [("m", i) for i in range(1, 8)]
+             + [("o", 1)] + [("m", i) for i in range(8, 16)])
+    pick = {"m": main16, "o": odd, "e": e5_1024}
+    streams = [pick[k][i][0] for k, i in order]
+    reset_launch_counts()
+    t = time.perf_counter()
+    outs = codestream.decode_batch(streams, device=dev)
+    secs = time.perf_counter() - t
+    launches = nonzero_counts()
+    check(launches == {"dequant_idct8": 3, "render_tail": 3},
+          f"mixed decode_batch launches {launches}: two batched buckets "
+          "and one singleton expected")
+    check(len(outs) == len(streams), "mixed decode_batch lost streams")
+    for (k, i), out in zip(order, outs):
+        near_host(out, pick[k][i][1], f"mixed decode_batch {k}{i}")
+        same = {"m": piped16, "o": odd_outs}.get(k)
+        if same is not None:
+            check(np.array_equal(out, same[i]), f"mixed decode_batch {k}{i} "
+                  "differs from its batch's own render")
+    log(f"phase mixed decode_batch ({len(streams)} streams, 3 geometries): "
+        f"{secs:.3f} s, order kept, launches {json.dumps(launches)}")
+    return launches
+
+
 def main():
     import torch
 
@@ -629,10 +998,16 @@ def main():
     import concurrent.futures as cf
     import multiprocessing as mp
 
-    jobs = ([(SIZE, SIZE, 100 + i, None) for i in range(2 * BATCH)]
-            + [(SIZE, SIZE, 200 + i, 3) for i in range(4)]
-            + [(*ODD_SIZE, 300 + i, None) for i in range(2)]
-            + [(512, 512, seed, "small") for seed in (7, 8)])
+    # the single-image path's streams first: the e5 encodes take longest
+    single_jobs = ([(SIZE, SIZE, 400 + i, "e5") for i in range(E5_FRAMES)]
+                   + [(*ODD_SIZE, 410 + i, "e5") for i in range(2)]
+                   + [(MIXED_E5, MIXED_E5, 420, "e5"),
+                      (SIZE, SIZE, 430, "ycbcr")])
+    jobs = single_jobs + (
+        [(SIZE, SIZE, 100 + i, None) for i in range(2 * BATCH)]
+        + [(SIZE, SIZE, 200 + i, 3) for i in range(4)]
+        + [(*ODD_SIZE, 300 + i, None) for i in range(2)]
+        + [(512, 512, seed, "small") for seed in (7, 8)])
     t = time.perf_counter()
     workers = min(len(jobs), os.cpu_count() or 1)
     # a worker that dies raises BrokenProcessPool here instead of hanging
@@ -641,9 +1016,13 @@ def main():
         done = list(ex.map(encode_and_reference, jobs))
     log(f"phase encode+host-decode: {time.perf_counter() - t:.2f} s "
         f"({len(jobs)} streams, {workers} processes)")
+    check(len({s for s, _ in done}) == len(done), "streams are not distinct")
+    single, done = done[:len(single_jobs)], done[len(single_jobs):]
+    e5_s = single[:E5_FRAMES]
+    odd5_s = single[E5_FRAMES:E5_FRAMES + 2]
+    mixed_e5, ycc = single[-2:]
     streams = [s for s, _ in done]
     refs = [r for _, r in done]
-    check(len(set(streams)) == len(streams), "streams are not distinct")
     main_s, main_r = streams[:2 * BATCH], refs[:2 * BATCH]
     epf3_s, epf3_r = streams[2 * BATCH:2 * BATCH + 4], \
         refs[2 * BATCH:2 * BATCH + 4]
@@ -700,9 +1079,9 @@ def main():
     outs, n = counted(tpu_codec.decode_batch, epf3_s, dev)
     check(n == RENDER_LAUNCHES, f"epf=3 decode_batch launches {n}")
     check_images(outs, epf3_r, "decode_batch 2048x2048 epf=3")
-    outs, n = counted(tpu_codec.decode_batch, odd_s, dev)
+    odd_outs, n = counted(tpu_codec.decode_batch, odd_s, dev)
     check(n == RENDER_LAUNCHES, f"1021x765 decode_batch launches {n}")
-    check_images(outs, odd_r, "decode_batch 1021x765 (true-size mirror)")
+    check_images(odd_outs, odd_r, "decode_batch 1021x765 (true-size mirror)")
     odd_config, odd_args = tpu_codec.prepare_batch(odd_s)
     check(odd_config.true_size == ODD_SIZE,
           f"1021x765 true size {odd_config.true_size}")
@@ -745,6 +1124,18 @@ def main():
         check(np.array_equal(a, b), "stage-timed device-entropy output "
               "differs from decode_pipelined's")
 
+    # the single-image path (codestream.decode with a device), counted,
+    # then the public batch entry on a mixed list, counted
+    t = time.perf_counter()
+    single_launches, single_recs = drive_single(e5_s, odd5_s, ycc, dev, smi)
+    for rec in records[:2]:
+        rec["single_image"] = {**single_recs[rec["name"]],
+                               "launches": single_launches[rec["name"]]}
+    drive_mixed_batch(list(zip(main_s[:BATCH], main_r[:BATCH])),
+                      list(zip(odd_s, odd_r)), [mixed_e5], piped[:BATCH],
+                      odd_outs, dev)
+    log(f"phase single-image + mixed decode_batch: "
+        f"{time.perf_counter() - t:.2f} s")
 
     # the TPU gather probes S1-S7 and the device-entropy profile
     t = time.perf_counter()

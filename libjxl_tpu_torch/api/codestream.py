@@ -187,10 +187,11 @@ def encode_cmyk(cmyk: np.ndarray, icc: bytes = None,
     return writer.get_bytes()
 
 
-def decode_cmyk(data: bytes):
+def decode_cmyk(data: bytes, device="cuda"):
     """Decode a CMYK (kBlack) stream to (H, W, 4) ink samples + meta.
-    Inverse of encode_cmyk: samples -> maxval - stored."""
-    ink, meta = decode(data, color_management=False)
+    Inverse of encode_cmyk: samples -> maxval - stored. device: as in
+    decode()."""
+    ink, meta = decode(data, color_management=False, device=device)
     if not any(e.type == 4 for e in meta.m.extra_channel_info):
         raise JXLError("stream has no kBlack channel")
     maxval = (1 << meta.m.bit_depth.bits_per_sample) - 1
@@ -536,7 +537,7 @@ def _stash_reference_frame(r, fh, meta, reference_frames,
 
 
 def decode(data: bytes, target_nits: float = None,
-           num_threads: int = 0,
+           num_threads: int = 0, device="cuda",
            decode_info: dict = None, color_management: bool = None,
            pixel_format: str = None):
     """Decode a bare codestream. Returns (image ndarray HxWxC, CodecMetadata).
@@ -556,9 +557,13 @@ def decode(data: bytes, target_nits: float = None,
     whenever an RGB ICC profile is embedded — the signaled color
     encoding IS the decoder's output space, matching djxl. Pass False
     to force plain sRGB output.
-    The pixel pipeline runs on the host (NumPy and native C); the batched
-    device decode is api/tpu_codec. decode_info: pass a dict to receive
-    {"path": ...} recording which renderer produced the pixels.
+    device: a torch device, "cuda" by default, renders each VarDCT
+    frame's pixel pipeline there (tpu_codec.make_device_render: dequant +
+    the IDCT zoo + Gaborish/EPF + the write stage), falling back to the
+    host, loudly, on unsupported features; "cpu" runs the same render on
+    the CPU. None renders on the host (NumPy and native C). There is no
+    accelerator probe: "cuda" with no card raises. decode_info: pass a dict to receive {"path": ...}
+    recording which renderer produced the pixels.
     """
     from ..io.frame_header import FT_DC, FT_REFERENCE_ONLY
     from ..ops.xyb import linear_to_srgb
@@ -566,6 +571,10 @@ def decode(data: bytes, target_nits: float = None,
 
     from ..io.container import extract_codestream, is_container
 
+    if device is not None:
+        from ..base.device import resolve_device
+
+        device = resolve_device(device)
     if is_container(data):
         # container-transparent like JxlDecoderProcessInput: pull the
         # codestream out of the jxlc/jxlp boxes (io/container.py)
@@ -736,13 +745,34 @@ def decode(data: bytes, target_nits: float = None,
         from ..parallel.runner import ThreadParallelRunner
 
         runner = ThreadParallelRunner(num_threads)
+    render_fn = None
     out = decode_info if decode_info is not None else {}
     out.setdefault("path", "host")
+    if device is not None:
+        from .tpu_codec import make_device_render
+
+        # the direct u8 write stage only applies when no host post-stage
+        # (tone map / CMS / spot colors / >8-bit output) needs the floats
+        from ..io.frame_header import CT_YCBCR as _CT_YCBCR_W
+
+        out["want_u8"] = (target_nits is None and bits <= 8
+                          and not want_float
+                          and (meta.m.xyb_encoded
+                               or fh.color_transform == _CT_YCBCR_W)
+                          and meta.m.orientation == 1
+                          and not color_management)
+        render_fn = make_device_render(fh, out, device)
     extra = []
     chans = decode_vardct_frame(r, fh, reference_frames, extra_out=extra,
                                 reference_extra=reference_extra,
                                 dc_frames=dc_frames, runner=runner,
+                                render_fn=render_fn,
+                                want_qimg=device is not None,
                                 num_threads=num_threads)
+    if chans is None and "u8" in out:
+        # the whole pipeline, the sRGB u8 write stage included, ran on
+        # the device
+        return _orient(out["u8"]), meta
     # spot-color channels are rendered into the color image and removed
     # from the output (stage_spot.cc)
     from ..io.headers import EC_SPOT_COLOR
@@ -877,11 +907,63 @@ def _finish_cms_output(out_px, extra, bits, meta, orient):
     return orient(out_px), meta
 
 
-def decode_batch(streams, num_threads: int = 0):
-    """Decode a list of codestreams one by one on the host. Returns a list
-    of uint8 images in input order. The batched device decode of
-    same-geometry all-DCT8 streams is api/tpu_codec.decode_batch."""
-    return [decode(s, num_threads=num_threads)[0] for s in streams]
+def decode_batch(streams, num_threads: int = 0, device="cuda"):
+    """Decode a list of codestreams. Returns a list of uint8 images in
+    input order.
+
+    device None decodes each stream on the host. A torch device ("cuda"
+    by default; a missing card raises) batches same-geometry all-DCT8 streams into one render there
+    (tpu_codec.decode_batch; lists longer than one batch of 16 run through
+    the two-deep entropy/render pipeline, tpu_codec.decode_pipelined).
+    When the list is not one such batch, the streams are bucketed by
+    (xsize, ysize): each bucket of two or more is batched, and singletons,
+    buckets outside the batch scope and streams that fail to parse decode
+    one by one through decode(..., device=device)."""
+    if device is None:
+        return [decode(s, num_threads=num_threads, device=None)[0]
+                for s in streams]
+    from ..base.device import resolve_device
+    from . import tpu_codec
+
+    dev = resolve_device(device)
+    if not streams:
+        return []
+
+    def batched(sub):
+        if len(sub) > 16:
+            return tpu_codec.decode_pipelined(sub, dev, batch_size=16,
+                                              num_threads=num_threads)
+        return tpu_codec.decode_batch(sub, dev, num_threads=num_threads)
+
+    try:
+        return batched(streams)
+    except JXLError:
+        pass  # heterogeneous / feature-gated: bucket by geometry
+    # mixed fleets: group same-(W, H) streams and batch each bucket (the
+    # batching is an optimization, never a behavior change)
+    buckets = {}
+    for i, s in enumerate(streams):
+        try:
+            meta = parse_codestream_header(BitReader(s))
+            key = (meta.size.xsize(), meta.size.ysize())
+        except JXLError:
+            key = ("bad", i)
+        buckets.setdefault(key, []).append(i)
+    out = [None] * len(streams)
+    for idxs in buckets.values():
+        if len(idxs) >= 2:
+            try:
+                imgs = batched([streams[i] for i in idxs])
+            except JXLError:
+                pass
+            else:
+                for i, im in zip(idxs, imgs):
+                    out[i] = im
+                continue
+        for i in idxs:
+            out[i] = decode(streams[i], num_threads=num_threads,
+                            device=dev)[0]
+    return out
 
 
 def decode_dc(data: bytes):
@@ -1186,12 +1268,19 @@ def encode_animation(frames, fps_numerator: int = 10, fps_denominator: int = 1,
     return writer.get_bytes()
 
 
-def decode_frames(data: bytes):
-    """Generator yielding (image, duration_ticks) for every frame, each
-    rendered on the host."""
+def decode_frames(data: bytes, device="cuda"):
+    """Generator yielding (image, duration_ticks) for every frame.
+
+    device: a torch device ("cuda" by default; a missing card raises)
+    renders each VarDCT frame's pixel pipeline there (the render of
+    decode()); None renders on the host."""
     from ..ops.xyb import linear_to_srgb
     from ..vardct.frame import decode_vardct_frame
 
+    if device is not None:
+        from ..base.device import resolve_device
+
+        device = resolve_device(device)
     r = BitReader(data)
     meta = parse_codestream_header(r)
     bits = meta.m.bit_depth.bits_per_sample
@@ -1206,8 +1295,19 @@ def decode_frames(data: bytes):
             elif bits <= 16:
                 stacked = stacked.astype(np.uint16)
         else:
-            chans = decode_vardct_frame(r, fh)
-            if bits <= 8:
+            render_fn = None
+            out = {}
+            if device is not None:
+                from .tpu_codec import make_device_render
+
+                out["want_u8"] = (bits <= 8 and meta.m.orientation == 1
+                                  and meta.m.xyb_encoded)
+                render_fn = make_device_render(fh, out, device)
+            chans = decode_vardct_frame(r, fh, render_fn=render_fn,
+                                        want_qimg=device is not None)
+            if chans is None and "u8" in out:
+                stacked = out["u8"]
+            elif bits <= 8:
                 from ..ops.xyb import linear_to_srgb_u8
 
                 stacked = linear_to_srgb_u8(np.stack(chans, axis=-1))

@@ -1,6 +1,6 @@
-"""Batched VarDCT serving decode on one device (the port of
-libjxl_tpu/api/tpu_codec.py's decode_tpu_batch and
-decode_tpu_batch_entropy paths).
+"""VarDCT decode on one device (the port of libjxl_tpu/api/tpu_codec.py's
+decode_tpu_batch, decode_tpu_batch_entropy and single-image decode
+paths).
 
 N same-geometry, all-DCT8, XYB streams are entropy-decoded on the host by
 the port's copy of the host decoder (prepare_batch), staged as one batch
@@ -12,6 +12,13 @@ and readback of batch k. decode_batch_entropy moves the AC entropy decode
 onto the device too: the host parses headers, DC and AC metadata
 (prepare_batch_entropy), and the device runs the rANS kernel, the
 placement of its tape and the same render.
+
+make_device_render is the single-image render that codestream.decode,
+decode_frames and decode_batch take with a device: one frame of any of
+the 27 AC strategies (dequant_idct8 over every block, the other
+strategies' inverse transforms as torch ops, render_tail), or a YCbCr
+frame (render_tail for its filters), with the reference's scope gates
+and path records; decode is its first-frame entry.
 
 Nothing here probes or imports JAX: the host layers it calls
 (codestream header parsing, decode_vardct_frame, render.pipeline
@@ -117,37 +124,52 @@ def _check_render_scope(st, fh, st0, fh0, dm0) -> None:
         raise JXLError("batch decode: mixed qm scales")
 
 
+def _gab_kernels(lf):
+    """The Gaborish kernels f32[3, 3, 3] of a frame's loop filter; None
+    without Gaborish."""
+    if not lf.gab:
+        return None
+    return np.stack([gaborish_kernel(getattr(lf, f"gab_{ch}_weight1"),
+                                     getattr(lf, f"gab_{ch}_weight2"))
+                     for ch in "xyb"]).astype(np.float32)
+
+
+def _sigma(state, lf):
+    """The EPF inverse sigma per BLOCK, f32[nby, nbx] (64x less to upload
+    than per pixel; the kernel reads it per block); zeros without EPF."""
+    if lf.epf_iters > 0:
+        return compute_sigma(lf, state.quantizer.global_scale_float,
+                             state.raw_quant_field,
+                             state.epf_sharpness).astype(np.float32)
+    return np.zeros((state.fd.ysize_blocks, state.fd.xsize_blocks),
+                    dtype=np.float32)
+
+
+def _sad_mul(lf, h, w):
+    """The EPF SAD multiplier map f32[h, w] (ones without EPF)."""
+    if lf.epf_iters > 0:
+        return _sad_mul_map(h, w, lf.epf_border_sad_mul).astype(np.float32)
+    return np.ones((h, w), dtype=np.float32)
+
+
 def _stage(states, fhs, dm0):
     """The batch's render config and its arrays other than qimg: (qf, dc,
     ytox, ytob, igs, isp, dm, gabk, sad)."""
     fd0 = states[0].fd
     lf0 = fhs[0].loop_filter
-    nby, nbx = fd0.ysize_blocks, fd0.xsize_blocks
-    h, w = nby * 8, nbx * 8
-    n = len(states)
+    h, w = fd0.ysize_blocks * 8, fd0.xsize_blocks * 8
     qf = np.stack([st.raw_quant_field for st in states]).astype(np.int32)
     dc = np.stack([st.dc for st in states]).astype(np.float32)
     ytox = np.stack([st.ytox_map for st in states]).astype(np.int32)
     ytob = np.stack([st.ytob_map for st in states]).astype(np.int32)
     igs = np.array([st.quantizer.inv_global_scale for st in states],
                    dtype=np.float32)
-    if lf0.epf_iters > 0:
-        # per-BLOCK sigma (64x less to upload than per-pixel); the EPF
-        # kernel reads it per block
-        isp = np.stack([
-            compute_sigma(
-                fh.loop_filter, st.quantizer.global_scale_float,
-                st.raw_quant_field, st.epf_sharpness).astype(np.float32)
-            for st, fh in zip(states, fhs)])
-        sad = _sad_mul_map(h, w, lf0.epf_border_sad_mul).astype(
-            np.float32)
-    else:
-        isp = np.zeros((n, nby, nbx), dtype=np.float32)
-        sad = np.ones((h, w), dtype=np.float32)
-    gabk = np.stack([gaborish_kernel(getattr(lf0, f"gab_{ch}_weight1"),
-                                     getattr(lf0, f"gab_{ch}_weight2"))
-                     for ch in "xyb"]).astype(np.float32) \
-        if lf0.gab else np.zeros((3, 3, 3), dtype=np.float32)
+    isp = np.stack([_sigma(st, fh.loop_filter)
+                    for st, fh in zip(states, fhs)])
+    sad = _sad_mul(lf0, h, w)
+    gabk = _gab_kernels(lf0)
+    if gabk is None:
+        gabk = np.zeros((3, 3, 3), dtype=np.float32)
     ts = (fd0.ysize, fd0.xsize) if (fd0.ysize, fd0.xsize) != (h, w) \
         else None
     config = BatchConfig(
@@ -249,14 +271,15 @@ class BatchRenderer(nn.Module):
                              torch.as_tensor(sad_mul, dtype=torch.float32))
 
     def forward(self, qimg, qf, dc, ytox, ytob, inv_global_scale,
-                inv_sigma):
+                inv_sigma, mark=None):
         c = self.config
         return pipeline.decode_render_image(
             qimg, qf, dc, ytox, ytob, self.dm, inv_global_scale,
             c.x_dm_mult, c.b_dm_mult, self.gab_kernels if c.gab else None,
             inv_sigma, self.sad_mul, c.channel_scale, c.epf_iters,
             to_rgb="u8srgb", pass0_sigma_scale=c.pass0_sigma_scale,
-            pass2_sigma_scale=c.pass2_sigma_scale, true_size=c.true_size)
+            pass2_sigma_scale=c.pass2_sigma_scale, true_size=c.true_size,
+            mark=mark)
 
 
 def batch_from_numpy(args, config: BatchConfig, device="cuda"):
@@ -416,3 +439,382 @@ def decode_batch_entropy(streams, device="cuda",
         lap("ok/steps readback + place")
     return _render(config, (qimg, *render_args), dev, lap), {
         "path": "device_entropy"}
+
+
+# ------------------------------------------------ the single-image render
+
+
+def _next_pow2(n: int) -> int:
+    return 1 << max(0, (n - 1).bit_length())
+
+
+def _gather_tiles(qimg, ys, xs, rows, cols, pad):
+    """(pad, 3, rows*cols) int32 tiles from the dense coefficient image
+    at block origins (ys, xs) — one fancy-indexed numpy gather."""
+    n = len(ys)
+    w = qimg.shape[-1]
+    base = (ys * 8 * w + xs * 8).astype(np.int64)
+    pattern = (np.arange(rows)[:, None] * w
+               + np.arange(cols)[None, :]).reshape(-1)
+    idx = base[:, None] + pattern[None, :]
+    flat = qimg.reshape(3, -1)
+    out = np.zeros((pad, 3, rows * cols), dtype=np.int32)
+    out[:n] = flat[:, idx].transpose(1, 0, 2)
+    return out
+
+
+def _prepare_batches(state, qimg):
+    """Group non-DCT8 blocks by strategy into padded device batches.
+
+    Returns (extra_tiles list, tile_shapes, size_passes list, size_shapes,
+    class_map i32[nby, nbx]) of numpy arrays (the JAX form also returns
+    a per-pixel dct8_mask, which class_map replaces), or None when an origin is not aligned to its own tile size
+    (host fallback; real encoders always emit aligned merges)."""
+    from ..ops.dct import resample_scales
+    from ..ops.pipeline import special_matrix
+
+    fd = state.fd
+    nby, nbx = fd.ysize_blocks, fd.xsize_blocks
+    inv_gs = state.quantizer.inv_global_scale
+    strat_map = state.strategy
+    origins = state.is_origin
+    used = np.unique(strat_map[origins])
+    extra, shapes = [], []
+    size_passes, size_shapes = [], []
+    class_map = np.zeros((nby, nbx), dtype=np.int32)
+    for s in used:
+        s = int(s)
+        if s == acs.DCT:
+            continue
+        cx, cy = acs.COVERED_X[s], acs.COVERED_Y[s]
+        rows, cols = cy * 8, cx * 8
+        kind = acs.QUANT_TABLE[s]
+        pos = np.argwhere(origins & (strat_map == s))
+        ys, xs = pos[:, 0], pos[:, 1]
+        n = len(ys)
+        if (cy > 1 and (ys % cy).any()) or (cx > 1 and (xs % cx).any()):
+            return None  # unaligned origin: host render
+        if (nby * 8) % rows != 0 or (nbx * 8) % cols != 0:
+            # the batched scatter also reshapes the padded grid by the
+            # tile size; odd-size images with large merges render on host
+            if max(rows, cols) > 8:
+                return None
+        plain = s in (acs.DCT16X16, acs.DCT32X32, acs.DCT16X8, acs.DCT8X16,
+                      acs.DCT32X8, acs.DCT8X32, acs.DCT32X16, acs.DCT16X32,
+                      acs.DCT64X64, acs.DCT64X32, acs.DCT32X64)
+        if plain and max(rows, cols) <= 64 \
+                and (nby * 8) % rows == 0 and (nbx * 8) % cols == 0:
+            # dense full-grid pass (decode_size_pass): no gathers; it
+            # needs the padded grid divisible by the tile
+            wr, wc = min(rows, cols), max(rows, cols)
+            dm = np.stack([state.matrices.dequant_matrix(kind, c)
+                           for c in range(3)]).astype(np.float32)
+            lh, lw = min(cy, cx), max(cy, cx)
+            mask_wide = np.zeros((wr, wc), dtype=bool)
+            mask_wide[:lh, :lw] = True
+            size_passes.append(dict(
+                dm_tile=dm.reshape(3, rows, cols),
+                llf_sy=resample_scales(lh, lh * 8).astype(np.float32),
+                llf_sx=resample_scales(lw, lw * 8).astype(np.float32),
+                llf_mask=mask_wide.reshape(rows, cols)))
+            size_shapes.append((rows, cols))
+            class_map[strat_map == s] = len(size_passes)
+            continue
+        class_map[strat_map == s] = -1
+        pad = _next_pow2(n)
+        q = _gather_tiles(qimg, ys, xs, rows, cols, pad)
+        quant = state.raw_quant_field[ys, xs].astype(np.float64)
+        scaled = np.zeros(pad, dtype=np.float32)
+        scaled[:n] = inv_gs / quant
+        ty, tx = ys // 8, xs // 8
+        x_cc = np.zeros(pad, dtype=np.float32)
+        b_cc = np.zeros(pad, dtype=np.float32)
+        x_cc[:n] = state.ytox(state.ytox_map[ty, tx].astype(np.float64))
+        b_cc[:n] = state.ytob(state.ytob_map[ty, tx].astype(np.float64))
+        ys_p = np.zeros(pad, dtype=np.int32)
+        xs_p = np.zeros(pad, dtype=np.int32)
+        ys_p[:n] = ys // cy  # tile indices in the (rows, cols) grid
+        xs_p[:n] = xs // cx
+        dm = np.stack([state.matrices.dequant_matrix(kind, c)
+                       for c in range(3)]).astype(np.float32)
+        batch = dict(ys=ys_p, xs=xs_p, scaled=scaled, x_cc=x_cc, b_cc=b_cc)
+        if rows == 8 and cols == 8:
+            batch["q"] = q
+            batch["dm"] = dm.reshape(3, 64)
+            batch["mat"] = special_matrix(s)
+            dc = np.zeros((pad, 3), dtype=np.float32)
+            dc[:n] = state.dc[:, ys, xs].T
+            batch["dc"] = dc
+        else:
+            wr, wc = min(rows, cols), max(rows, cols)
+            batch["q"] = q.reshape(pad, 3, wr, wc)
+            batch["dm"] = dm
+            dc = np.zeros((pad, 3, cy, cx), dtype=np.float32)
+            dcp = np.pad(state.dc, ((0, 0), (0, cy), (0, cx)))
+            dc_pat = (np.arange(cy)[:, None] * (nbx + cx)
+                      + np.arange(cx)[None, :]).reshape(-1)
+            dc_idx = (ys * (nbx + cx) + xs)[:, None] + dc_pat[None, :]
+            dc[:n] = dcp.reshape(3, -1)[:, dc_idx].transpose(
+                1, 0, 2).reshape(n, 3, cy, cx)
+            batch["dc"] = dc
+            lh, lw = min(cy, cx), max(cy, cx)
+            batch["llf_sy"] = resample_scales(lh, lh * 8).astype(np.float32)
+            batch["llf_sx"] = resample_scales(lw, lw * 8).astype(np.float32)
+        extra.append(batch)
+        shapes.append((rows, cols))
+    return extra, tuple(shapes), size_passes, tuple(size_shapes), class_map
+
+
+def _qblocks_from_qimg(state):
+    """Rebuild the per-block dict from the dense coefficient image so the
+    host render path can take over (rare fallback)."""
+    qimg = state.qimg
+    for s in np.unique(state.strategy[state.is_origin]):
+        s = int(s)
+        cx, cy = acs.COVERED_X[s], acs.COVERED_Y[s]
+        pos = np.argwhere(state.is_origin & (state.strategy == s))
+        n = len(pos)
+        tiles = _gather_tiles(qimg, pos[:, 0], pos[:, 1], cy * 8, cx * 8, n)
+        for i, (by, bx) in enumerate(pos):
+            state.qblocks[(int(by), int(bx))] = tiles[i].astype(np.int64)
+
+
+def _f32(v) -> float:
+    """A host scalar rounded to f32, as the JAX path hands it over."""
+    return float(np.float32(v))
+
+
+def to_device(obj, dev):
+    """`obj` with every numpy array in it, inside tuples, lists and dicts,
+    as a contiguous tensor on dev."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(obj)).to(dev)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_device(o, dev) for o in obj)
+    if isinstance(obj, dict):
+        return {k: to_device(v, dev) for k, v in obj.items()}
+    return obj
+
+
+def _dense_qimg(state) -> None:
+    """state.qimg, the dense coefficient image: when the bulk entropy path
+    did not run (small image / lz77 / prefix streams), assembled from the
+    per-block dict."""
+    if getattr(state, "qimg", None) is not None:
+        return
+    fd = state.fd
+    state.qimg = np.zeros((3, fd.ysize_blocks * 8, fd.xsize_blocks * 8),
+                          dtype=np.int32)
+    for (by, bx), blk in state.qblocks.items():
+        s = int(state.strategy[by, bx])
+        cx, cy = acs.COVERED_X[s], acs.COVERED_Y[s]
+        state.qimg[:, by * 8:(by + cy) * 8, bx * 8:(bx + cx) * 8] = \
+            np.asarray(blk).reshape(3, cy * 8, cx * 8)
+
+
+def stage_image(state, fh, direct_u8: bool):
+    """The host-side inputs of one XYB frame's device render: (args,
+    kwargs) of pipeline.decode_render_image, numpy arrays in the types
+    the kernels take (i32 coefficients, quant field and CfL maps, f32
+    DC), to_device'd before the call; None when a transform's layout
+    keeps the frame on the host. direct_u8: the render ends in the sRGB
+    u8 write (else XYB)."""
+    _dense_qimg(state)
+    prep = _prepare_batches(state, state.qimg)
+    if prep is None:
+        return None
+    extra, shapes, size_passes, size_shapes, class_map = prep
+    fd = state.fd
+    h, w = fd.ysize_blocks * 8, fd.xsize_blocks * 8
+    lf = fh.loop_filter
+    args = (state.qimg.astype(np.int32, copy=False),
+            state.raw_quant_field.astype(np.int32, copy=False),
+            state.dc.astype(np.float32), state.ytox_map.astype(np.int32),
+            state.ytob_map.astype(np.int32), _dequant_tables(state),
+            _f32(state.quantizer.inv_global_scale), _f32(state.x_dm_mult),
+            _f32(state.b_dm_mult), _gab_kernels(lf), _sigma(state, lf),
+            _sad_mul(lf, h, w), tuple(_f32(v) for v in lf.epf_channel_scale),
+            int(lf.epf_iters))
+    kwargs = dict(
+        to_rgb="u8srgb" if direct_u8 else False,
+        pass0_sigma_scale=_f32(lf.epf_pass0_sigma_scale),
+        pass2_sigma_scale=_f32(lf.epf_pass2_sigma_scale),
+        extra_tiles=extra, tile_shapes=shapes,
+        size_passes=size_passes, size_shapes=size_shapes,
+        class_map=class_map,
+        true_size=(fd.ysize, fd.xsize)
+        if (fd.ysize, fd.xsize) != (h, w) else None)
+    return args, kwargs
+
+
+def _render_subsampled_device(state, fh, out, dev) -> bool:
+    """The device render of a YCbCr frame (the JPEG recompression decode
+    path): pipeline.decode_render_subsampled (dequant + IDCT8, box chroma
+    upsampling, one render_tail launch for the filters, BT.601, the u8
+    write). Returns True when final pixels were produced in out['u8'];
+    False when the frame is outside its scope (host render)."""
+    fd = state.fd
+    if not out.get("want_u8", False):
+        return False
+    if state.patches is not None or state.splines is not None \
+            or state.noise_lut is not None:
+        return False
+    if fh.upsampling != 1 \
+            or fh.nonserialized_metadata.m.num_extra_channels:
+        return False
+    qb = getattr(state, "qblocks_sub", None)
+    is444 = qb is None
+    if is444:
+        # 444 YCbCr rides the regular dense layout; all-DCT8 only
+        if getattr(state, "qimg", None) is None:
+            return False
+        strategies = np.unique(state.strategy[state.is_origin])
+        if not all(int(s) == acs.DCT for s in strategies):
+            return False
+        # the dense host path applies CfL and the x/b qm multipliers;
+        # this lean YCbCr render assumes they are neutral
+        if np.any(state.ytox_map) or np.any(state.ytob_map) \
+                or state.x_dm_mult != 1.0 or state.b_dm_mult != 1.0 \
+                or state.base_x != 0.0 or state.base_b != 0.0:
+            return False
+    elif getattr(state, "dc_sub", None) is None:
+        return False
+    from ..vardct.subsampled import _shifts
+
+    hs, vs = _shifts(fh) if not is444 else ([0, 0, 0], [0, 0, 0])
+    inv_gs = state.quantizer.inv_global_scale
+    qs, dcs, scaled = [], [], []
+    for c in range(3):
+        nby = (fd.ysize_blocks + (1 << vs[c]) - 1) >> vs[c]
+        nbx = (fd.xsize_blocks + (1 << hs[c]) - 1) >> hs[c]
+        if is444:
+            qs.append(state.qimg[c])
+            dcs.append(np.asarray(state.dc[c], dtype=np.float32))
+        else:
+            plane5 = np.zeros((nby, 8, nbx, 8), dtype=np.int32)
+            d = qb[c]
+            if d:
+                keys = np.array(list(d.keys()), dtype=np.int64)
+                vals = np.stack([np.asarray(v) for v in
+                                 d.values()]).astype(np.int32)
+                plane5[keys[:, 0], :, keys[:, 1], :] = \
+                    vals.reshape(-1, 8, 8)
+            qs.append(plane5.reshape(nby * 8, nbx * 8))
+            dcs.append(np.asarray(state.dc_sub[c],
+                                  dtype=np.float32)[:nby, :nbx])
+        qf = state.raw_quant_field[::1 << vs[c], ::1 << hs[c]][:nby, :nbx]
+        scaled.append((inv_gs / qf).astype(np.float32))
+    lf = fh.loop_filter
+    h, w = fd.ysize_blocks * 8, fd.xsize_blocks * 8
+    dm = np.stack([state.matrices.dequant_matrix(0, c).reshape(8, 8)
+                   for c in range(3)]).astype(np.float32)
+    args = to_device(([q.astype(np.int32, copy=False) for q in qs], dcs,
+                      scaled, dm, _gab_kernels(lf), _sigma(state, lf),
+                      _sad_mul(lf, h, w)), dev)
+    with torch.inference_mode():
+        u8 = pipeline.decode_render_subsampled(
+            *args, tuple(_f32(v) for v in lf.epf_channel_scale),
+            tuple((int(hs[c]), int(vs[c])) for c in range(3)),
+            epf_iters=int(lf.epf_iters), gab=bool(lf.gab),
+            pass0_sigma_scale=_f32(lf.epf_pass0_sigma_scale),
+            pass2_sigma_scale=_f32(lf.epf_pass2_sigma_scale), to_u8=True,
+            true_size=(fd.ysize, fd.xsize)
+            if (fd.ysize, fd.xsize) != (h, w) else None)
+        out["u8"] = u8.cpu().numpy()
+    out["path"] = "device:u8-ycbcr"
+    state.device_output_done = True
+    return True
+
+
+def make_device_render(fh, out: dict, device="cuda"):
+    """render_fn for decode_vardct_frame: the frame's render on `device`
+    (pipeline.decode_render_image: dequant_idct8 over every block, the
+    other strategies' inverse transforms, the true-size mirror and
+    render_tail; or the YCbCr render). Streams outside its scope render
+    on the host, loudly: the reason is logged and recorded in
+    out["path"] ("host:<reason>"); otherwise out["path"] is "device:u8"
+    (final pixels in out["u8"]), "device:xyb" (XYB handed back for the
+    host's post-render stages) or "device:u8-ycbcr". out["want_u8"]
+    (default True) lets the u8 write stay on the device. Only those scope
+    gates choose the host: a kernel that fails to build or launch
+    raises."""
+    import logging
+
+    from ..io.frame_header import CT_XYB, CT_YCBCR
+    from ..vardct.frame import render_groups
+
+    dev = resolve_device(device)
+    log = logging.getLogger("libjxl_tpu_torch.device")
+
+    def host_fallback(state, reason):
+        out["path"] = f"host:{reason}"
+        log.warning("device render fell back to host: %s", reason)
+        if getattr(state, "qimg", None) is not None \
+                and not state.qblocks:
+            _qblocks_from_qimg(state)
+        render_groups(state)
+
+    def render_device(state):
+        fd = state.fd
+        if getattr(state, "qblocks_sub", None) is not None \
+                or list(fh.chroma_subsampling.channel_mode) != [0, 0, 0]:
+            if _render_subsampled_device(state, fh, out, dev):
+                state.restoration_done = True
+                return
+            out["path"] = "host:chroma-subsampled"
+            log.warning("device render fell back to host: "
+                        "chroma-subsampled stream")
+            from ..vardct.subsampled import render_groups_sub
+
+            render_groups_sub(state)
+            return
+        _dense_qimg(state)
+        if fh.color_transform == CT_YCBCR:
+            # 444 YCbCr (JPEG transcode without chroma subsampling)
+            if _render_subsampled_device(state, fh, out, dev):
+                state.restoration_done = True
+                return
+            host_fallback(state, "YCbCr 444 outside the lean device "
+                          "program")
+            return
+        if fh.color_transform != CT_XYB or \
+                getattr(state, "color_factor", 84) != 84 or \
+                getattr(state, "base_x", 0.0) != 0.0 or \
+                getattr(state, "base_b", 1.0) != 1.0:
+            host_fallback(state, "non-XYB or custom color correlation")
+            return
+        h, w = fd.ysize_blocks * 8, fd.xsize_blocks * 8
+        # with no post-render features the whole write stage (XYB->sRGB
+        # u8) stays on the device and the host never touches pixel floats
+        direct_u8 = (out.get("want_u8", True)
+                     and state.patches is None
+                     and state.splines is None and state.noise_lut is None
+                     and fh.upsampling == 1
+                     and fh.nonserialized_metadata.m.num_extra_channels
+                     == 0
+                     and fd.ysize == h and fd.xsize == w)
+        staged = stage_image(state, fh, direct_u8)
+        if staged is None:
+            host_fallback(state, "unaligned/odd-size transform layout")
+            return
+        args, kw = to_device(staged, dev)
+        with torch.inference_mode():
+            host = pipeline.decode_render_image(*args, **kw).cpu().numpy()
+        if direct_u8:
+            out["u8"] = host
+            out["path"] = "device:u8"
+            state.device_output_done = True
+        else:
+            state.xyb = host.astype(np.float64)
+            out["path"] = "device:xyb"
+        state.restoration_done = True
+
+    return render_device
+
+
+def decode(data: bytes, device="cuda"):
+    """The port of decode_tpu: codestream.decode(data, device=device), the
+    first frame with the device render. Returns (uint8 image, metadata)."""
+    from . import codestream
+
+    return codestream.decode(data, device=device)

@@ -2,7 +2,8 @@
 
 Device: every entry point takes a device, "cuda" unless the caller asks
 for the CPU, and resolves it here. Asking for CUDA without a card raises;
-nothing falls back to the CPU.
+nothing falls back to the CPU. (api/codestream's decode entries also take
+device=None, the host decode of the copied host layers.)
 
 Precision: fp32 throughout, with TF32 off for matmuls and cuDNN. This is
 the counterpart of the JAX package's `Precision.HIGHEST`

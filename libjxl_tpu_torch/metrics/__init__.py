@@ -1,0 +1,1 @@
+from .distance import compute_psnr, butteraugli_distance, msssim_xyb

@@ -19,6 +19,7 @@ from __future__ import annotations
 import functools
 
 import numpy as np
+import torch
 
 SIZES = (1, 2, 4, 8, 16, 32, 64, 128, 256)
 
@@ -104,3 +105,30 @@ def lowest_frequencies_scales(rows: int, cols: int, dct_rows: int,
     """DCTTotalResampleScale factors used by ReinterpretingDCT
     (dec_transforms-inl.h:27-59)."""
     return resample_scales(rows, dct_rows), resample_scales(cols, dct_cols)
+
+
+# ------------------------------------------------------------ torch variants
+# The counterpart of the JAX package's make_jax_dct: fp32 matrix products,
+# with TF32 off (base/device.apply_precision_policy) in place of
+# Precision.HIGHEST.
+@functools.lru_cache(maxsize=None)
+def _torch_matrix(kind: str, n: int, device) -> torch.Tensor:
+    return torch.as_tensor(_fwd32(n) if kind == "fwd" else _inv32(n),
+                           device=device)
+
+
+def torch_dct2d(pixels: torch.Tensor, r: int, c: int) -> torch.Tensor:
+    """dct2d of an f32 (..., r, c) tensor -> wide-layout (..., min, max)."""
+    dev = pixels.device
+    out = torch.einsum("ur,...rc,vc->...uv", _torch_matrix("fwd", r, dev),
+                       pixels, _torch_matrix("fwd", c, dev))
+    return out.transpose(-2, -1) if r >= c else out
+
+
+def torch_idct2d(coeffs: torch.Tensor, r: int, c: int) -> torch.Tensor:
+    """idct2d of an f32 wide-layout (..., min, max) tensor -> (..., r, c)."""
+    dev = coeffs.device
+    if r >= c:
+        coeffs = coeffs.transpose(-2, -1)
+    return torch.einsum("ru,...uv,cv->...rc", _torch_matrix("inv", r, dev),
+                        coeffs, _torch_matrix("inv", c, dev))

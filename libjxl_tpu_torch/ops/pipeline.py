@@ -1,18 +1,21 @@
-"""Plain torch stages of the all-DCT8 VarDCT decode.
+"""Plain torch stages of the VarDCT decode.
 
 The port of libjxl_tpu/ops/pipeline.py's decode stages, with its function
 names minus the `_jax` suffix and its layouts: images are f32[3, H, W]
 planar XYB or RGB, and an explicit batch dimension may lead
-([B, 3, H, W], per-block maps [B, nby, nbx]). Coefficients stay in the
-bitstream's transposed per-block layout.
+([B, 3, H, W], per-block maps [B, nby, nbx]) on the all-DCT8 stages.
+Coefficients stay in the bitstream's transposed per-block layout.
 
-These are the plain twins of the hand-written kernels in ops/kernels.py
+Some are the plain twins of the hand-written kernels in ops/kernels.py
 (decode_xyb_image for dequant_idct8, render_tail_plain for render_tail,
-_epf_pass for epf_pass), and they are what the CPU runs. decode_render_image
-calls the kernel wrappers, which take the kernel on a CUDA tensor and these
-plain forms on a CPU tensor. render_tail_tiled runs the render tail tile by
-tile as the kernel does (halos, per-stage mirror refills at the frame
-edge), in plain torch.
+_epf_pass for epf_pass), and they are what the CPU runs.
+decode_render_image and decode_render_subsampled call the kernel
+wrappers, which take the kernel on a CUDA tensor and these plain forms on
+a CPU tensor. The other block strategies' inverse transforms
+(decode_special_tiles, decode_big_tiles, decode_size_pass), which the
+reference left to XLA, are torch ops on either device. render_tail_tiled
+runs the render tail tile by tile as the kernel does (halos, per-stage
+mirror refills at the frame edge), in plain torch.
 """
 
 from __future__ import annotations
@@ -30,6 +33,9 @@ from ..io.headers import (
 from .dct import inv_matrix
 
 COLOR_TILE_BLOCKS = 8
+# decode_render_image's stages, in order (the names its mark hook gets)
+RENDER_STAGES = ("dequant_idct8", "size passes", "extra tiles",
+                 "true-size mirror", "render_tail")
 # the only chroma-from-luma parameters the batched path admits
 # (api/tpu_codec.prepare_batch rejects others)
 COLOR_FACTOR = 84.0
@@ -353,35 +359,279 @@ def mirror_to_true_size(xyb: torch.Tensor, true_size) -> torch.Tensor:
     return xyb
 
 
+def _block_to_px(block_map: torch.Tensor, h: int, w: int) -> torch.Tensor:
+    """(nby, nbx) per-block values -> (H, W) per-pixel."""
+    return _repeat2(block_map, 8)[..., :h, :w]
+
+
+@functools.lru_cache(maxsize=None)
+def special_matrix(strategy: int) -> np.ndarray:
+    """(64, 64) f32: pixels_flat = M @ coeffs_flat for an 8x8-tile
+    strategy (IDENTITY/DCT2X2/DCT4X4/DCT8X4/DCT4X8/AFV0-3 and DCT8).
+    Every TransformToPixels case is linear, so the whole per-strategy
+    special-case code collapses to one matmul on the device."""
+    from ..vardct.transforms import transform_to_pixels
+
+    m = np.zeros((64, 64), dtype=np.float64)
+    for k in range(64):
+        e = np.zeros(64)
+        e[k] = 1.0
+        m[:, k] = transform_to_pixels(strategy, e.reshape(8, 8)).reshape(64)
+    return m.astype(np.float32)
+
+
+def _dequant_cfl(q, dm, s, x_cc, b_cc, x_dm_mult, b_dm_mult, dim):
+    """Dequant + AdjustQuantBias + CfL of coefficients q whose channel
+    axis is `dim`: channel c's weights dm[c], the scale s and the CfL
+    factors x_cc/b_cc broadcast against q.select(dim, c). Returns the f32
+    coefficients stacked on `dim`."""
+    dq_y = adjust_quant_bias(q.select(dim, 1), 1) * dm[1] * s
+    dq_x = adjust_quant_bias(q.select(dim, 0), 0) * dm[0] * s \
+        * float(x_dm_mult) + x_cc * dq_y
+    dq_b = adjust_quant_bias(q.select(dim, 2), 2) * dm[2] * s \
+        * float(b_dm_mult) + b_cc * dq_y
+    return torch.stack([dq_x, dq_y, dq_b], dim=dim)
+
+
+def decode_special_tiles(q, dc, scaled, x_cc, b_cc, dm_kind, mat,
+                         x_dm_mult, b_dm_mult):
+    """Batched dequant + CfL + inverse transform for one 8x8-tile
+    strategy. q: int[n, 3, 64]; dc: f32[n, 3]; scaled/x_cc/b_cc: f32[n];
+    dm_kind: f32[3, 64]; mat: f32[64, 64]. Returns f32[n, 3, 8, 8]."""
+    co = _dequant_cfl(q, dm_kind, scaled[:, None], x_cc[:, None],
+                      b_cc[:, None], x_dm_mult, b_dm_mult, 1)
+    co[:, :, 0] = dc
+    pix = torch.einsum("ncs,ps->ncp", co, mat)
+    return pix.reshape(-1, 3, 8, 8)
+
+
+def decode_big_tiles(q, dc_tiles, scaled, x_cc, b_cc, dm_kind,
+                     x_dm_mult, b_dm_mult, rows, cols, llf_sy, llf_sx):
+    """Batched dequant + LLF-from-DC + IDCT for one plain-DCT size above
+    8x8 (vardct.frame._render_dct_batch on the device).
+
+    q: int[n, 3, wr, wc] wide layout; dc_tiles: f32[n, 3, cy, cx];
+    dm_kind: f32[3, wr, wc]; llf_sy/llf_sx: f32 resample scales.
+    Returns f32[n, 3, rows, cols] pixel tiles."""
+    from .dct import torch_dct2d, torch_idct2d
+
+    s = scaled[:, None, None]
+    co = _dequant_cfl(q, dm_kind, s, x_cc[:, None, None],
+                      b_cc[:, None, None], x_dm_mult, b_dm_mult, 1)
+    cy, cx = dc_tiles.shape[-2:]
+    llf = torch_dct2d(dc_tiles, cy, cx) / (llf_sy[:, None] * llf_sx[None, :])
+    lh, lw = min(cy, cx), max(cy, cx)
+    co[:, :, :lh, :lw] = llf
+    return torch_idct2d(co, rows, cols)
+
+
+def decode_size_pass(qimg, qf_px, dc, ytox_px, ytob_px, dm_tile,
+                     x_dm_mult, b_dm_mult, rows, cols, llf_sy, llf_sx,
+                     llf_mask_tile):
+    """Dense full-grid dequant + LLF + IDCT for one plain-DCT tile size
+    (rows, cols), 16x16 .. 64x64. No gathers or scatters: every aligned
+    tile of the grid is transformed and the caller selects the pixels
+    whose covering block really uses this size.
+
+    qf_px/ytox_px/ytob_px: per-pixel f32 maps (constant within a tile by
+    construction); dm_tile: f32[3, rows, cols] dequant weights laid out
+    in tile order; llf_mask_tile: bool[rows, cols] True at LLF slots.
+    Returns f32[3, H, W]."""
+    from .dct import torch_dct2d, torch_idct2d
+
+    _, h, w = qimg.shape
+    nty, ntx = h // rows, w // cols
+    cy, cx = rows // 8, cols // 8
+    wr, wc = min(rows, cols), max(rows, cols)
+    dmt = dm_tile.repeat(1, nty, ntx)
+    co = _dequant_cfl(qimg, dmt, qf_px, ytox_px, ytob_px, x_dm_mult,
+                      b_dm_mult, 0)
+    # LLF from DC: per-tile DCT of the (cy, cx) DC patch, rescaled
+    # (LowestFrequenciesFromDC, dec_transforms-inl.h:688-816)
+    dct = dc.reshape(3, nty, cy, ntx, cx).transpose(2, 3)
+    llf = torch_dct2d(dct, cy, cx) / (llf_sy[:, None] * llf_sx[None, :])
+    lh, lw = llf.shape[-2:]
+    # LLF lives at wide-layout [:lh, :lw]; the tile stores the wide array
+    # reshaped row-major to (rows, cols)
+    llf_wide = llf.new_zeros((3, nty, ntx, wr, wc))
+    llf_wide[..., :lh, :lw] = llf
+    llf_img = llf_wide.reshape(3, nty, ntx, rows, cols).transpose(
+        2, 3).reshape(3, h, w)
+    mask_img = llf_mask_tile.repeat(nty, ntx)
+    co = torch.where(mask_img, llf_img, co)
+    # IDCT: tile layout row-major == wide layout reshaped; reshape back
+    wide = co.reshape(3, nty, rows, ntx, cols).transpose(2, 3).reshape(
+        3, nty, ntx, wr, wc)
+    pix = torch_idct2d(wide, rows, cols)
+    return pix.transpose(2, 3).reshape(3, h, w)
+
+
+def scatter_tiles(acc5, pix, ys, xs):
+    """Add aligned (rows, cols) pixel tiles pix f32[n, 3, rows, cols] into
+    the 5-D image view acc5 (3, H//rows, rows, W//cols, cols) at tile
+    indices (ys, xs), in place; returns acc5. The tiles of one strategy
+    never overlap; only the batch's zero padding tiles share (0, 0), and
+    adding zero is exact in any order."""
+    acc5.permute(1, 3, 0, 2, 4).index_put_(
+        (ys.long(), xs.long()), pix, accumulate=True)
+    return acc5
+
+
+def render_size_passes(xyb, qimg, qf, dc, ytox_map, ytob_map,
+                       inv_global_scale, x_dm_mult, b_dm_mult, size_passes,
+                       size_shapes, class_map):
+    """xyb f32[3, H, W] with the pixels whose block class_map gives size
+    pass i + 1 taken from that dense pass's output (a new tensor)."""
+    _, h, w = xyb.shape
+    cls_px = _repeat2(class_map, 8)
+    scaled_px = _block_to_px(float(inv_global_scale) / qf.to(torch.float32),
+                             h, w)
+    tile_px = 8 * COLOR_TILE_BLOCKS
+    xcc_px = BASE_X + _repeat2(ytox_map.to(torch.float32),
+                               tile_px)[:h, :w] / COLOR_FACTOR
+    bcc_px = BASE_B + _repeat2(ytob_map.to(torch.float32),
+                               tile_px)[:h, :w] / COLOR_FACTOR
+    for i, (sp, (rows, cols)) in enumerate(zip(size_passes, size_shapes)):
+        pix = decode_size_pass(
+            qimg, scaled_px, dc, xcc_px, bcc_px, sp["dm_tile"], x_dm_mult,
+            b_dm_mult, rows, cols, sp["llf_sy"], sp["llf_sx"],
+            sp["llf_mask"])
+        xyb = torch.where(cls_px == i + 1, pix, xyb)
+    return xyb
+
+
+def render_extra_tiles(xyb, extra_tiles, tile_shapes, x_dm_mult, b_dm_mult,
+                       class_map):
+    """xyb f32[3, H, W] with the tiles of the remaining strategies (8x8
+    specials, above 64 px, unaligned) at the blocks with class_map < 0 (a
+    new tensor)."""
+    _, h, w = xyb.shape
+    acc = torch.zeros_like(xyb)
+    for b, (rows, cols) in zip(extra_tiles, tile_shapes):
+        if rows == 8 and cols == 8:
+            pix = decode_special_tiles(
+                b["q"], b["dc"], b["scaled"], b["x_cc"], b["b_cc"], b["dm"],
+                b["mat"], x_dm_mult, b_dm_mult)
+        else:
+            pix = decode_big_tiles(
+                b["q"], b["dc"], b["scaled"], b["x_cc"], b["b_cc"], b["dm"],
+                x_dm_mult, b_dm_mult, rows, cols, b["llf_sy"], b["llf_sx"])
+        scatter_tiles(acc.view(3, h // rows, rows, w // cols, cols), pix,
+                      b["ys"], b["xs"])
+    return torch.where(_repeat2(class_map, 8) < 0, acc, xyb)
+
+
 def decode_render_image(qimg, qf, dc, ytox_map, ytob_map, dm,
                         inv_global_scale, x_dm_mult, b_dm_mult,
                         gab_kernels, inv_sigma, sad_mul, channel_scale,
                         epf_iters, to_rgb=True,
                         pass0_sigma_scale=0.9, pass2_sigma_scale=6.5,
-                        extra_tiles=None, size_passes=None,
-                        true_size=None):
-    """All-DCT8 branch of the device decode on image-layout coefficients:
-    dequant + IDCT8 (kernels.dequant_idct8) -> true-size mirror ->
-    Gaborish -> EPF -> output (kernels.render_tail); on a CUDA tensor two
-    kernel launches whatever the filters.
+                        extra_tiles=None, tile_shapes=None,
+                        size_passes=None, size_shapes=None, class_map=None,
+                        true_size=None, mark=None):
+    """The device decode on image-layout coefficients: dequant + IDCT8 of
+    every block (kernels.dequant_idct8) -> the other strategies' blocks
+    (render_size_passes, render_extra_tiles; torch ops) -> true-size
+    mirror -> Gaborish -> EPF -> output (kernels.render_tail). On a CUDA
+    tensor two kernel launches whatever the strategies and filters.
 
     inv_sigma is per block, f32[..., nby, nbx] (the JAX form takes it per
     pixel). to_rgb: "u8srgb" returns sRGB u8[..., H, W, 3], True linear
-    RGB, False XYB. The other block strategies (size_passes,
-    extra_tiles) belong to the single-image all-strategy render, which
-    is not ported yet."""
-    if size_passes or extra_tiles:
-        raise NotImplementedError("decode_render_image: only the all-DCT8 "
-                                  "branch is ported")
+    RGB, False XYB. size_passes: per-size dicts of the dense plain-DCT
+    passes, size_shapes their (rows, cols); class_map: i32[nby, nbx], 0 =
+    DCT8, i + 1 = size pass i, -1 = an extra tile. extra_tiles: per-batch
+    dicts of the remaining strategies, tile_shapes their (rows, cols).
+    The strategy branch takes one image ([3, H, W]); the all-DCT8 form
+    also takes a batch. mark, when given, is called as mark(stage, tensor)
+    once each stage's work is queued, with every name of RENDER_STAGES in
+    order and the stage's output (a timing hook: it may record a CUDA
+    event)."""
     from .kernels import dequant_idct8, render_tail
 
+    mark = mark or (lambda stage, t: None)
     xyb = dequant_idct8(qimg, qf, dc, ytox_map, ytob_map, dm,
                         inv_global_scale, x_dm_mult, b_dm_mult)
+    mark("dequant_idct8", xyb)
+    if size_passes:
+        xyb = render_size_passes(xyb, qimg, qf, dc, ytox_map, ytob_map,
+                                 inv_global_scale, x_dm_mult, b_dm_mult,
+                                 size_passes, size_shapes, class_map)
+    mark("size passes", xyb)
+    if extra_tiles:
+        xyb = render_extra_tiles(xyb, extra_tiles, tile_shapes, x_dm_mult,
+                                 b_dm_mult, class_map)
+    mark("extra tiles", xyb)
     if true_size is not None:
         mirror_to_true_size(xyb, true_size)
+    mark("true-size mirror", xyb)
     out = render_tail(xyb, gab_kernels, inv_sigma, sad_mul, channel_scale,
                       epf_iters, pass0_sigma_scale, pass2_sigma_scale,
                       out="u8srgb" if to_rgb == "u8srgb" else "xyb")
+    mark("render_tail", out)
     if to_rgb == "u8srgb" or not to_rgb:
         return out
     return xyb_to_rgb(out)
+
+
+def ycbcr_to_rgb(planes: torch.Tensor) -> torch.Tensor:
+    """Full-range BT.601 (stage_ycbcr.cc:31-52): (Cb, Y, Cr) planes f32[3,
+    H, W] -> RGB in [0, 1]."""
+    cb, y, cr = planes.unbind(0)
+    yp = y + float(np.float32(128.0 / 255))
+    r = yp + 1.402 * cr
+    g = yp + float(np.float32(-0.114 * 1.772 / 0.587)) * cb \
+        + float(np.float32(-0.299 * 1.402 / 0.587)) * cr
+    b = yp + 1.772 * cb
+    return torch.stack([r, g, b])
+
+
+def decode_render_subsampled(qs, dcs, scaled_maps, dm, gab_kernels,
+                             inv_sigma, sad_mul, channel_scale, shifts,
+                             epf_iters=0, gab=False, pass0_sigma_scale=0.9,
+                             pass2_sigma_scale=6.5, to_u8=False,
+                             true_size=None):
+    """The device decode of a chroma-subsampled YCbCr DCT8 frame
+    (dec_group.cc:569 quant-from-luma + stage_chroma_upsampling +
+    stage_ycbcr): per-channel dequant + IDCT8 at native resolution (torch
+    ops), box chroma upsampling, Gaborish/EPF on the block-padded luma-size
+    planes (one kernels.render_tail launch, XYB form, whatever the
+    filters), BT.601, then the crop to true_size.
+
+    qs: 3 x int[nbyc*8, nbxc*8] dense transposed-layout coefficients;
+    dcs: 3 x f32[nbyc, nbxc] unquantized DC; scaled_maps: 3 x f32[nbyc,
+    nbxc] per-block inv_global_scale/quant (from the luma quant field);
+    dm: f32[3, 8, 8]; inv_sigma per block f32[nby, nbx] of the luma plane
+    (the JAX form takes it per pixel); shifts: (hs, vs) per channel.
+    Returns RGB f32[3, h, w] or, with to_u8, u8[h, w, 3]."""
+    from .kernels import render_tail
+
+    planes = []
+    h = w = None
+    for c in range(3):
+        q = qs[c]
+        nby, nbx = q.shape[0] // 8, q.shape[1] // 8
+        blocks = q.reshape(nby, 8, nbx, 8).transpose(1, 2)
+        co = adjust_quant_bias(blocks, c) * dm[c] \
+            * scaled_maps[c][:, :, None, None]
+        co[:, :, 0, 0] = dcs[c]
+        plane = idct8_blocks(co).transpose(1, 2).reshape(nby * 8, nbx * 8)
+        hs, vs = shifts[c]
+        if vs:
+            plane = plane.repeat_interleave(1 << vs, 0)
+        if hs:
+            plane = plane.repeat_interleave(1 << hs, 1)
+        if c == 1:
+            h, w = plane.shape
+        planes.append(plane)
+    ycc = torch.stack([p[:h, :w] for p in planes])
+    ycc = render_tail(ycc, gab_kernels if gab else None, inv_sigma, sad_mul,
+                      channel_scale, epf_iters, pass0_sigma_scale,
+                      pass2_sigma_scale, out="xyb")
+    rgb = ycbcr_to_rgb(ycc)
+    if true_size is not None:
+        rgb = rgb[:, :true_size[0], :true_size[1]]
+    if to_u8:
+        # YCbCr VarDCT frames carry display-space values: no transfer
+        u8 = torch.clamp(torch.round(rgb * 255.0), 0, 255).to(torch.uint8)
+        return u8.permute(1, 2, 0).contiguous()
+    return rgb

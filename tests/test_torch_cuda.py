@@ -172,6 +172,132 @@ def test_decode_batch_on_card_matches_cpu(cuda):
         assert np.abs(g.astype(int) - c.astype(int)).max() <= 1
 
 
+def _photo(h, w, seed):
+    """Smooth content, a textured patch and mild noise: e5 picks dense
+    size passes and 8x8 special tiles on it."""
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:h, 0:w]
+    img = (120 + 60 * np.sin(xx * 0.03) + 50 * np.cos(yy * 0.02 + 1)
+           + 20 * np.sin((xx + yy) * 0.1) + rng.normal(0, 5, (h, w)))
+    patch = (slice(h // 3, h // 2), slice(w // 4, w // 2))
+    img[patch] += 60 * ((xx[patch] // 4) % 2)
+    rgb = np.stack([img, img * 0.9 + 10, img * 1.1 - 12], -1)
+    return np.clip(rgb, 0, 255).astype(np.uint8)
+
+
+def _launched(fn, *args, **kw):
+    from libjxl_tpu_torch.base.device import launch_counts
+
+    before = launch_counts()
+    out = fn(*args, **kw)
+    torch.cuda.synchronize()
+    after = launch_counts()
+    return out, {k: after[k] - before.get(k, 0) for k in after
+                 if after[k] != before.get(k, 0)}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape,path", [((256, 256), "device:u8"),
+                                        ((250, 189), "device:xyb")],
+                         ids=["aligned", "true-size-crop"])
+def test_decode_on_card_matches_cpu(cuda, shape, path):
+    """The single-image render of an e5 frame (size passes and special
+    tiles): the same path record as on the CPU, u8 within one step of
+    the CPU's render (the twins), one dequant_idct8 and one render_tail
+    launch."""
+    from libjxl_tpu_torch.api import codestream
+
+    data = codestream.encode_lossy(_photo(*shape, 3), distance=1.0,
+                                   effort=5)
+    info, cinfo = {}, {}
+    (got, _), n = _launched(codestream.decode, data, device=cuda,
+                            decode_info=info)
+    ref, _ = codestream.decode(data, device="cpu", decode_info=cinfo)
+    assert info["path"] == cinfo["path"] == path
+    assert n == {"dequant_idct8": 1, "render_tail": 1}
+    assert got.shape == ref.shape
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_decode_ycbcr_on_card_matches_cpu(cuda):
+    """The JPEG transcode of the corpus (4:2:0 YCbCr): one render_tail
+    launch, u8 within one step of the CPU's render."""
+    import pathlib
+
+    from libjxl_tpu_torch.api import codestream
+
+    data = (pathlib.Path(__file__).resolve().parent / "data" / "conformance"
+            / "jpeg_recon.jxl").read_bytes()
+    info = {}
+    (got, _), n = _launched(codestream.decode, data, device=cuda,
+                            decode_info=info)
+    ref, _ = codestream.decode(data, device="cpu")
+    assert info["path"] == "device:u8-ycbcr"
+    assert n == {"render_tail": 1}
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+def _filtered_ycbcr420(h, w):
+    """A 4:2:0 YCbCr stream of _photo with Gaborish and 2 EPF passes
+    (tests/test_decode_path.py's builder, the port's encoder)."""
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.io.bits import BitWriter
+    from libjxl_tpu_torch.io.frame_header import (
+        CT_YCBCR, ENC_VARDCT, FLAG_SKIP_ADAPTIVE_DC_SMOOTHING, FT_REGULAR,
+        FrameHeader)
+    from libjxl_tpu_torch.io.headers import CodecMetadata, SizeHeader
+    from libjxl_tpu_torch.vardct.frame import rgb_to_ycbcr
+    from libjxl_tpu_torch.vardct.subsampled import encode_vardct_subsampled
+
+    meta = CodecMetadata()
+    meta.size = SizeHeader().set(w, h)
+    meta.m.all_default = False
+    meta.m.xyb_encoded = False
+    wr = BitWriter()
+    codestream.write_codestream_header(wr, meta)
+    fh = FrameHeader(meta)
+    fh.all_default = False
+    fh.frame_type = FT_REGULAR
+    fh.encoding = ENC_VARDCT
+    fh.color_transform = CT_YCBCR
+    fh.chroma_subsampling.channel_mode = [0, 1, 0]
+    fh.flags = FLAG_SKIP_ADAPTIVE_DC_SMOOTHING
+    fh.loop_filter.all_default = False
+    fh.loop_filter.gab = True
+    fh.loop_filter.epf_iters = 2
+    ycbcr = rgb_to_ycbcr(np.moveaxis(_photo(h, w, 6).astype(np.float64)
+                                     / 255, -1, 0))
+    planes = [ycbcr[1]]
+    for c in (0, 2):
+        h2, w2 = h // 2 * 2, w // 2 * 2
+        planes.insert(c, ycbcr[c][:h2, :w2].reshape(
+            h2 // 2, 2, w2 // 2, 2).mean(axis=(1, 3)))
+    encode_vardct_subsampled(wr, planes, fh, distance=1.0)
+    return wr.get_bytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 256), (90, 100)],
+                         ids=["aligned", "true-size-crop"])
+def test_decode_filtered_ycbcr_on_card_matches_cpu(cuda, shape):
+    """A 4:2:0 YCbCr frame with Gaborish and 2 EPF passes: render_tail
+    filters the block-padded luma-size planes (no true-size mirror) and
+    the crop follows BT.601. One render_tail launch, u8 within one step
+    of the same render on the CPU (the twins)."""
+    from libjxl_tpu_torch.api import codestream
+
+    data = _filtered_ycbcr420(*shape)
+    info, cinfo = {}, {}
+    (got, _), n = _launched(codestream.decode, data, device=cuda,
+                            decode_info=info)
+    ref, _ = codestream.decode(data, device="cpu", decode_info=cinfo)
+    assert info["path"] == cinfo["path"] == "device:u8-ycbcr"
+    assert n == {"render_tail": 1}
+    assert got.shape == ref.shape == (*shape, 3)
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
 def _entropy_streams(n, seed):
     """n distinct smooth 256x512 streams at d4: two AC groups each."""
     from libjxl_tpu_torch.api import codestream

@@ -130,6 +130,72 @@ def test_epf3_batch_runs_the_pass0_geometry(corpus):
         assert _max_step(out, ref) <= 1
 
 
+def test_public_decode_batch_falls_back(corpus):
+    """codestream.decode_batch(..., device="cpu") returns each stream's
+    pixels when the list is not one batch (tests/test_decode_batch.py's
+    test of the JAX package)."""
+    from libjxl_tpu_torch.api import codestream as tcs
+
+    a, ra = corpus[(320, 264)]
+    b, rb = corpus[(61, 45)]
+    outs = tcs.decode_batch([a[0], b[0]], device="cpu")
+    assert _max_step(outs[0], ra[0]) <= 1
+    assert _max_step(outs[1], rb[0]) <= 1
+    assert tcs.decode_batch([], device="cpu") == []
+
+
+def test_decode_batch_buckets_mixed_geometry(corpus, monkeypatch):
+    """A mixed fleet buckets by geometry: each same-size pair is one
+    batched render, the singleton (a one-group e3 stream) and the ICC and
+    spline streams, which fall outside the batch scope, decode one by one
+    through decode(..., device=...); order is kept."""
+    from libjxl_tpu.render.splines import Spline
+    from libjxl_tpu_torch.api import codestream as tcs
+    from libjxl_tpu_torch.extras import cms
+
+    a, ra = corpus[(256, 192)]
+    b, rb = corpus[(320, 264)]
+    c, rc = _encode(1, 64, 96, seed=52)
+    img = np.clip(np.random.default_rng(53).normal(120, 30, (96, 96, 3)), 0,
+                  255).astype(np.uint8)
+    icc = cms.make_rgb_profile(((0.64, 0.33), (0.21, 0.71), (0.15, 0.06)),
+                               gamma=2.2)
+    color = np.zeros((3, 32))
+    color[:, 0] = (0.2, 0.5, 0.4)
+    sigma = np.zeros(32)
+    sigma[0] = 2.0
+    gated = [codestream.encode_lossy(img, distance=1.0, effort=3, icc=icc,
+                                     device=False),
+             codestream.encode_lossy(img, distance=1.0, effort=3,
+                                     device=False, splines=[Spline(
+                                         np.array([[20.0, 20.0],
+                                                   [60.0, 50.0]]),
+                                         color, sigma)])]
+    gated_refs = [codestream.decode(s, device=False)[0] for s in gated]
+    mixed = [a[0], b[0], gated[0], c[0], a[1], gated[1], b[1]]
+    refs = [ra[0], rb[0], gated_refs[0], rc[0], ra[1], gated_refs[1], rb[1]]
+    batches, singles = [], []
+    real_batch, real_decode = tpu_codec.decode_batch, tcs.decode
+
+    def spy_batch(streams, *args, **kw):
+        batches.append([mixed.index(s) for s in streams])
+        return real_batch(streams, *args, **kw)
+
+    def spy_decode(data, *args, **kw):
+        singles.append((mixed.index(data), str(kw.get("device"))))
+        return real_decode(data, *args, **kw)
+
+    monkeypatch.setattr(tpu_codec, "decode_batch", spy_batch)
+    monkeypatch.setattr(tcs, "decode", spy_decode)
+    outs = tcs.decode_batch(mixed, device="cpu")
+    # the whole list first, then each bucket of two or more
+    assert batches == [list(range(7)), [0, 4], [1, 6], [2, 5]]
+    assert sorted(singles) == [(2, "cpu"), (3, "cpu"), (5, "cpu")]
+    for i, (o, r) in enumerate(zip(outs, refs)):
+        assert o.shape == r.shape, i
+        assert _max_step(o, r) <= 1, i
+
+
 _NO_JAX = textwrap.dedent("""
     import importlib, importlib.abc, pkgutil, sys
 

@@ -31,10 +31,11 @@ CONFORMANCE = pathlib.Path(__file__).resolve().parent / "data" / \
     "conformance"
 
 
-def _lossy_vardct_cases():
+def _corpus_cases():
+    """Every stream of the conformance corpus: lossless and lossy
+    modular, VarDCT, and the chroma-subsampled JPEG transcode."""
     cases = json.loads((CONFORMANCE / "manifest.json").read_text())["cases"]
-    return sorted(c["name"] for c in cases
-                  if c["kind"] == "lossy" and "modular" not in c["name"])
+    return sorted(c["name"] for c in cases)
 
 
 def _image(n, seed, noise=3.0):
@@ -141,11 +142,11 @@ def test_decode_state_equals_the_jax_package(generated, epf):
     _assert_same(*sig, "sigma")
 
 
-@pytest.mark.parametrize("name", _lossy_vardct_cases())
+@pytest.mark.parametrize("name", _corpus_cases())
 def test_host_decode_conformance_equals_the_jax_package(name):
     data = (CONFORMANCE / f"{name}.jxl").read_bytes()
     ref, _ = jcs.decode(data, device=False)
-    out, _ = tcs.decode(data)
+    out, _ = tcs.decode(data, device=None)
     assert out.dtype == ref.dtype and out.shape == ref.shape
     np.testing.assert_array_equal(out, ref)
 
@@ -154,7 +155,7 @@ def test_host_decode_conformance_equals_the_jax_package(name):
 def test_host_decode_generated_equals_the_jax_package(generated, epf):
     data = generated[epf]
     ref, _ = jcs.decode(data, device=False)
-    out, _ = tcs.decode(data)
+    out, _ = tcs.decode(data, device=None)
     assert out.dtype == np.uint8 and out.shape == (512, 512, 3)
     np.testing.assert_array_equal(out, ref)
 
@@ -169,6 +170,83 @@ def test_encode_lossy_writes_the_jax_package_bytes(shape, seed, epf):
                            epf=epf)
     out = tcs.encode_lossy(img, distance=1.0, effort=3, epf=epf)
     assert out == ref
+
+
+@pytest.mark.parametrize("effort", [5, 7])
+def test_encode_lossy_at_higher_efforts_writes_the_jax_package_bytes(effort):
+    """The default effort (5: the learned modular DC tree, the AC
+    strategy search) and 7 (the butteraugli quant refinement)."""
+    img = _image(160, 21)[:, :136]
+    ref = jcs.encode_lossy(img, distance=1.0, effort=effort, device=False)
+    assert tcs.encode_lossy(img, distance=1.0, effort=effort) == ref
+
+
+def test_encode_lossless_learned_tree_writes_the_jax_package_bytes():
+    """Effort 7 learns the MA tree (modular/learn.py)."""
+    img = _image(96, 22)[:80]
+    ref = jcs.encode_lossless(img, effort=7)
+    assert tcs.encode_lossless(img, effort=7) == ref
+
+
+def _gated_streams():
+    """A stream with an ICC profile and one with splines, each from the
+    port's own encoder."""
+    from libjxl_tpu_torch.extras import cms
+    from libjxl_tpu_torch.render.splines import Spline
+
+    img = _image(96, 23)
+    icc = cms.make_rgb_profile(((0.64, 0.33), (0.21, 0.71), (0.15, 0.06)),
+                               gamma=2.2)
+    color = np.zeros((3, 32))
+    color[:, 0] = (0.2, 0.5, 0.4)
+    sigma = np.zeros(32)
+    sigma[0] = 2.0
+    spline = Spline(np.array([[20.0, 20.0], [40.0, 35.0], [70.0, 60.0]]),
+                    color, sigma)
+    return {"icc": tcs.encode_lossy(img, distance=1.0, effort=3, icc=icc),
+            "splines": tcs.encode_lossy(img, distance=1.0,
+                                        splines=[spline])}
+
+
+@pytest.mark.parametrize("kind", ["icc", "splines"])
+def test_batch_gates_raise_jxlerror_with_the_jax_reasons(kind):
+    """prepare_batch and prepare_batch_entropy refuse an ICC stream and a
+    spline stream with JXLError and the JAX package's reasons, so callers
+    fall back; decode_batch_entropy takes its host-entropy fallback, whose
+    own gate then refuses the stream, as the JAX package's does."""
+    from libjxl_tpu.api import tpu_codec as jtc
+    from libjxl_tpu_torch.api import tpu_codec as ttc
+    from libjxl_tpu_torch.base.status import JXLError
+
+    data = _gated_streams()[kind]
+    for port, jax_fn in ((ttc.prepare_batch, jtc.prepare_tpu_batch),
+                         (ttc.prepare_batch_entropy,
+                          jtc.prepare_tpu_batch_entropy)):
+        with pytest.raises(Exception) as jerr:
+            jax_fn([data])
+        with pytest.raises(JXLError) as err:
+            port([data])
+        assert type(jerr.value).__name__ == "JXLError"
+        assert str(err.value) == str(jerr.value)
+    with pytest.raises(JXLError) as err:
+        ttc.decode_batch_entropy([data], "cpu")
+    reason = str(jerr.value)
+    assert f"device-entropy fallback: {reason}" in err.value.__notes__
+    assert "CMS output stage" in reason if kind == "icc" \
+        else "no raw AC capture" in reason
+
+
+def test_decode_batch_entropy_falls_back_to_host_entropy():
+    """A one-group stream has no raw AC sections: the device-entropy path
+    falls back to the host-entropy batch, which decodes it."""
+    from libjxl_tpu_torch.api import tpu_codec as ttc
+
+    data = tcs.encode_lossy(_image(64, 24), distance=1.0, effort=3)
+    imgs, info = ttc.decode_batch_entropy([data], "cpu")
+    assert info == {"path": "host_entropy",
+                    "fallback": "batch decode: no raw AC capture"}
+    ref, _ = jcs.decode(data, device=False)
+    assert np.abs(imgs[0].astype(int) - ref.astype(int)).max() <= 1
 
 
 def test_native_library_builds_in_the_build_dir():

@@ -41,6 +41,53 @@ def test_walker_sees_imports_inside_functions(tmp_path):
     assert list(_imports(src)) == [(4, "libjxl_tpu"), (5, "jax")]
 
 
+PORT = ROOT / "libjxl_tpu_torch"
+PORT_SOURCES = sorted(PORT.rglob("*.py"))
+
+
+def _relative_imports(path: pathlib.Path):
+    """(line, target path) of every relative import in `path`, lazy ones
+    included: the module a `from .x import y` names, or, for `from .
+    import y`, the package's y."""
+    for node in ast.walk(ast.parse(path.read_text(), str(path))):
+        if isinstance(node, ast.ImportFrom) and node.level:
+            base = path.parent
+            for _ in range(node.level - 1):
+                base = base.parent
+            if node.module:
+                yield node.lineno, base.joinpath(*node.module.split("."))
+            else:
+                for alias in node.names:
+                    yield node.lineno, base / alias.name
+
+
+def _resolves(target: pathlib.Path) -> bool:
+    return target.with_suffix(".py").is_file() \
+        or (target / "__init__.py").is_file()
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_SOURCES])
+def test_every_relative_import_resolves_to_a_port_file(path):
+    missing = [(line, str(t.relative_to(ROOT)))
+               for line, t in _relative_imports(path) if not _resolves(t)]
+    assert not missing, f"{path.relative_to(ROOT)} imports {missing}"
+
+
+def test_relative_import_walker_sees_lazy_and_package_imports(tmp_path):
+    pkg = tmp_path / "pkg" / "sub"
+    pkg.mkdir(parents=True)
+    (tmp_path / "pkg" / "__init__.py").write_text("")
+    (pkg / "__init__.py").write_text("")
+    (tmp_path / "pkg" / "there.py").write_text("")
+    src = pkg / "m.py"
+    src.write_text("from . import gone\n\ndef f():\n"
+                   "    from ..there import x\n"
+                   "    from ..absent import y\n")
+    got = [(line, _resolves(t)) for line, t in _relative_imports(src)]
+    assert got == [(1, False), (4, True), (5, False)]
+
+
 _IMPORT_ALL = textwrap.dedent("""
     import importlib, pkgutil, sys
     import libjxl_tpu_torch

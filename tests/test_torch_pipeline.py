@@ -137,17 +137,6 @@ def test_decode_render_image_matches_jax(epf_iters, to_rgb, true_size):
             np.testing.assert_allclose(out, ref, **TOL)
 
 
-def test_decode_render_image_raises_for_other_strategies():
-    d = _image_inputs(30, 1, 16, 16)
-    args = (_t(d["qimg"]), _t(d["qf"]), _t(d["dc"]), _t(d["ytox"]),
-            _t(d["ytob"]), _t(d["dm"]), _t(d["igs"]), 0.8, 1.0, None,
-            _t(d["isg"]), _t(d["sad"]), CS, 0)
-    with pytest.raises(NotImplementedError):
-        tpl.decode_render_image(*args, size_passes=({},))
-    with pytest.raises(NotImplementedError):
-        tpl.decode_render_image(*args, extra_tiles=({},))
-
-
 def test_resolve_device_and_precision_policy(monkeypatch):
     monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", True)
     monkeypatch.setattr(torch.backends.cudnn, "allow_tf32", True)
