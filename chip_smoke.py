@@ -58,7 +58,25 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    16 x 2048x2048 e3, 2 x 1021x765 e3 and the 1024x1024 e5 stream: it
    buckets, each e3 bucket one batched render equal to the same batch's
    own, the e5 singleton through decode, order kept;
-9. holds every probe kernel (the TPU gather probes S1-S7,
+9. drives the device encode, counted (no hand kernel may launch):
+   codestream.encode_lossy(..., device="cuda") of 4 photo-like 2048x2048
+   images at d1/e3 beside the host encode of the same images (MP/s), the
+   card's encode-step arrays against the CPU twin's on a 512x512 and a
+   2048x2048 image (values that differ, bytes equal or not), the card's
+   stream decoded on the card and by the host within 1 u8 step, and the
+   split of one encode (srgb2lin and the encode step by CUDA events;
+   host setup, upload, readback, host entropy coding by host clock);
+   then the streaming encode of one 4096x4096 photo (four DC groups) with
+   hosts=1 and hosts=2 (equal bytes, MP/s, peak device memory, the first
+   DC group's step against the CPU twin); then the bounded-memory decode
+   of the same photo encoded at e3 on the card:
+   codestream.decode_rows(..., device="cuda") with the counters reset
+   just before (u8 strips, dequant_idct8 and render_tail once a strip,
+   within 1 u8 step of decode(..., device="cuda") and of the host strips,
+   the per-strip split by CUDA events, MP/s and peak device memory beside
+   the whole-image decode's), and an e5 stream, outside the strips'
+   device scope, through the host strips with no launch;
+10. holds every probe kernel (the TPU gather probes S1-S7,
    libjxl_tpu_torch/probes) against its twin, exactly, then drives the
    probes with the counters reset just before: every S1-S5 form timed
    at its TPU probe's step count (ns per lane-step, the marginal cost
@@ -67,7 +85,8 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    on the first 16-stream batch (the stream-copy floor, ans_decode's
    cost a step and fixed cost, the tape fill, place's pieces).
 
-It prints the phase seconds, the rates (render-only, pipelined
+It prints the phase seconds, a JSON line of the encode, streaming and
+strip records, the rates (render-only, pipelined
 end-to-end, host-entropy and device-entropy end-to-end MP/s, with the
 device-entropy stages) with the card's name, a line a probe form and the
 K3 split with the card's name and power limit, a JSON line of the kernels
@@ -89,6 +108,8 @@ BATCH = 16
 SIZE = 2048
 ODD_SIZE = (765, 1021)  # (height, width), not multiples of 8
 E5_FRAMES = 4  # 2048^2 d1/e5 frames of the single-image path
+ENCODE_FRAMES = 4  # 2048^2 d1/e3 photos of the device encode
+BIG = 4096  # the streaming and strips photo: four 2048^2 DC groups
 MIXED_E5 = 1024  # the side of the e5 singleton in the mixed decode_batch
 U8_BOUND = 1  # u8 steps from the host decode (tests/test_decode_batch.py)
 K1_TOL = dict(rtol=1e-5, atol=1e-5)
@@ -198,7 +219,7 @@ def encode_and_reference(job):
     h, w, seed, kind = job
     if kind == "small":
         stream = codestream.encode_lossy(small_image(h, seed), distance=4.0,
-                                         effort=3)
+                                         effort=3, device=None)
     elif kind == "e5":
         stream = codestream.encode_lossy(make_image(h, w, seed),
                                          distance=1.0, effort=5)
@@ -206,7 +227,8 @@ def encode_and_reference(job):
         return ycbcr_stream(h, w, seed), None
     else:
         stream = codestream.encode_lossy(make_image(h, w, seed),
-                                         distance=1.0, effort=3, epf=kind)
+                                         distance=1.0, effort=3, epf=kind,
+                                         device=None)
     ref = codestream.decode(stream, device=None)[0][:, :, :3]
     return stream, np.ascontiguousarray(ref)
 
@@ -700,7 +722,7 @@ def single_split(stream, dev, reps=5):
     u8 out), readback. Returns (host s, {stage: ms}, u8 image, the staged
     inputs)."""
     from libjxl_tpu_torch.api import tpu_codec
-    from libjxl_tpu_torch.ops import pipeline
+    from libjxl_tpu_torch.ops import pipeline, staging
 
     t = time.perf_counter()
     state, fh = capture_frame(stream)
@@ -709,7 +731,7 @@ def single_split(stream, dev, reps=5):
     check(staged is not None, "the frame's layout keeps it on the host")
 
     def run(mark):
-        args, kw = tpu_codec.to_device(staged, dev)
+        args, kw = staging.to_device(staged, dev)
         mark("upload")
         u8 = pipeline.decode_render_image(*args, **kw, mark=mark)
         img = u8.cpu().numpy()
@@ -726,10 +748,9 @@ def check_single_kernels(staged, dev):
     them and their bounds. Returns {kernel: record}."""
     import torch
 
-    from libjxl_tpu_torch.api import tpu_codec
-    from libjxl_tpu_torch.ops import kernels, pipeline
+    from libjxl_tpu_torch.ops import kernels, pipeline, staging
 
-    args, kw = tpu_codec.to_device(staged, dev)
+    args, kw = staging.to_device(staged, dev)
     qimg, qf, dc, ytox, ytob, dm, igs, xdm, bdm, gab, isg, sad, cs, epf = \
         args
     k1_args = (qimg, qf, dc, ytox, ytob, dm, igs, xdm, bdm)
@@ -964,6 +985,455 @@ def drive_mixed_batch(main16, odd, e5_1024, piped16, odd_outs, dev):
     return launches
 
 
+def mp_s(pixels, secs):
+    return pixels / 1e6 / secs
+
+
+def encode_arrays(img, device):
+    """tpu_codec.encode_lossy_tpu(img, device=device): its bytes and the
+    encode step's arrays as read back (qimg, nz, dc, qf, ytox, ytob,
+    sharp), taken through its mark hook."""
+    from libjxl_tpu_torch.api import tpu_codec
+
+    got = {}
+
+    def mark(stage, value):
+        if stage == "readback":
+            got["arrays"] = value
+
+    data = tpu_codec.encode_lossy_tpu(img, distance=1.0, device=device,
+                                      mark=mark)
+    return data, got["arrays"]
+
+
+def twin_agreement(card, cpu, label, names):
+    """The card's arrays against the CPU twin's on the same input (named
+    by `names`): the count of values that differ, each array's largest
+    difference. Integer arrays may differ by one step where a float sits
+    on a rounding boundary (cuBLAS and the CPU sum the DCT in other
+    orders), in fewer than one value in 10,000; the zero counts nz move
+    by at most one a differing coefficient; float arrays within 1e-5."""
+    out = {}
+    for name, a, b in zip(names, card, cpu):
+        check(a.shape == b.shape and a.dtype == b.dtype,
+              f"{label} {name}: {a.shape} {a.dtype} vs {b.shape} {b.dtype}")
+        diff = np.abs(a.astype(np.float64) - b.astype(np.float64))
+        n = int((diff != 0).sum())
+        out[name] = {"differ": n, "of": int(a.size),
+                     "max_abs": float(diff.max())}
+        if a.dtype.kind == "f":
+            ok = np.allclose(a, b, rtol=1e-5, atol=1e-5)
+        elif name == "nz":
+            ok = diff.sum() <= out["qimg"]["differ"]
+        else:
+            ok = diff.max() <= 1 and n <= max(1, a.size // 10000)
+        check(ok, f"{label} {name}: card vs CPU twin: {n} values differ, "
+              f"max {diff.max()}")
+    return out
+
+
+ENCODE_ARRAYS = ("qimg", "nz", "dc", "qf", "ytox", "ytob", "sharp")
+
+
+def encode_split(img, dev, reps=3):
+    """encode_lossy_tpu's stages (tpu_codec.ENCODE_STAGES) on one image,
+    mean of `reps` after a warm-up: the device stages (srgb2lin, the
+    encode step) by CUDA events, the rest (host setup, the pageable
+    upload, the readback, the host entropy coding) by host clock, the
+    device synchronized at each stage's end. Returns {stage: ms}."""
+    import torch
+
+    from libjxl_tpu_torch.api import tpu_codec
+
+    total = {}
+    for rep in range(reps + 1):
+        torch.cuda.synchronize()
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        marks = [(None, time.perf_counter(), ev)]
+
+        def mark(stage, _value, marks=marks):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            torch.cuda.synchronize()
+            marks.append((stage, time.perf_counter(), e))
+
+        tpu_codec.encode_lossy_tpu(img, distance=1.0, device=dev, mark=mark)
+        if rep:
+            for (_, t0, e0), (stage, t1, e1) in zip(marks, marks[1:]):
+                ms = e0.elapsed_time(e1) if stage in ("srgb2lin",
+                                                      "encode step") \
+                    else (t1 - t0) * 1e3
+                total[stage] = total.get(stage, 0.0) + ms / reps
+    return total
+
+
+def drive_encode(dev, smi):
+    """The one-shot device encode: codestream.encode_lossy(...,
+    device=dev) of ENCODE_FRAMES 2048^2 d1/e3 photos, counters reset just
+    before (the path has no hand kernel: nothing may launch), beside the
+    host encode of the same images; the card's arrays against the CPU
+    twin's on a 512^2 and a 2048^2 image; the card's stream decoded by
+    the host and by decode(device=dev), within 1 u8 step of each other;
+    the stage split. Returns the phase's record."""
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+
+    imgs = [make_image(SIZE, SIZE, 500 + i) for i in range(ENCODE_FRAMES)]
+    codestream.encode_lossy(make_image(256, 256, 509), effort=3,
+                            device=dev)  # first torch calls on the card
+    reset_launch_counts()
+    dev_s, streams = [], []
+    for img in imgs:
+        t = time.perf_counter()
+        streams.append(codestream.encode_lossy(img, distance=1.0, effort=3,
+                                               device=dev))
+        dev_s.append(time.perf_counter() - t)
+    launches = nonzero_counts()
+    check(launches == {}, f"the encode path launched kernels: {launches}")
+    host_s = []
+    for img, data in zip(imgs, streams):
+        t = time.perf_counter()
+        host = codestream.encode_lossy(img, distance=1.0, effort=3,
+                                       device=None)
+        host_s.append(time.perf_counter() - t)
+        log(f"encode {SIZE}x{SIZE} d1/e3: device {len(data)} B, host "
+            f"{len(host)} B, bytes {'equal' if host == data else 'differ'}")
+    agreement = {}
+    for label, img in ((f"512x512", make_image(512, 512, 510)),
+                       (f"{SIZE}x{SIZE}", imgs[0])):
+        card_b, card = encode_arrays(img, dev)
+        cpu_b, cpu = encode_arrays(img, "cpu")
+        agreement[label] = {"bytes_equal": card_b == cpu_b,
+                            **twin_agreement(card, cpu, f"encode {label}",
+                                             ENCODE_ARRAYS)}
+        log(f"encode {label}: card vs CPU twin arrays "
+            + ", ".join(f"{k} {v['differ']}/{v['of']} differ "
+                        f"(max {v['max_abs']:.3g})"
+                        for k, v in agreement[label].items()
+                        if isinstance(v, dict))
+            + f"; bytes {'equal' if card_b == cpu_b else 'differ'}")
+    got = codestream.decode(streams[0], device=dev)[0]
+    ref = codestream.decode(streams[0], device=None)[0]
+    steps, share = near_host(got, ref, "device-encoded stream: "
+                             "decode(device) vs host decode")
+    split = encode_split(imgs[0], dev)
+    mp = SIZE * SIZE * len(imgs)
+    rec = {"images": f"{len(imgs)} x {SIZE}^2 d1/e3", "launches": launches,
+           "device_s": dev_s, "host_s": host_s,
+           "device_mp_s": mp_s(mp, sum(dev_s)),
+           "host_mp_s": mp_s(mp, sum(host_s)), "split_ms": split,
+           "twin": agreement, "decode_steps": steps, "decode_share": share}
+    log(f"phase device encode ({rec['images']}, host clock): "
+        f"encode_lossy(device) {rec['device_mp_s']:.2f} MP/s (best "
+        f"{min(dev_s):.3f} s), host encode {rec['host_mp_s']:.2f} MP/s "
+        f"(best {min(host_s):.3f} s); split of one image: "
+        + ", ".join(f"{k} {v:.3f} ms" for k, v in split.items())
+        + f" (srgb2lin, encode step: CUDA events; the rest host clock); "
+        f"{smi}")
+    return rec
+
+
+def drive_streaming(img, dev, smi):
+    """The streaming encode of one BIG^2 photo (four 2048^2 DC groups):
+    encode_lossy_streaming(..., device=dev) with hosts=1 and hosts=2,
+    counters reset just before (no hand kernel: nothing may launch);
+    equal bytes, MP/s, peak device memory; the first DC group's step on
+    the card against the CPU twin on the same inputs. Returns (stream,
+    record)."""
+    import torch
+
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+    from libjxl_tpu_torch.vardct import streaming
+
+    step = streaming.step
+    steps = []
+
+    def recorded(*args):
+        out = step(*args)
+        steps.append((args, out))
+        return out
+
+    runs = {}
+    streaming.step = recorded
+    try:
+        for hosts in (1, 2):
+            reset_launch_counts()
+            torch.cuda.reset_peak_memory_stats()
+            t = time.perf_counter()
+            data = codestream.encode_lossy_streaming(img, distance=1.0,
+                                                     hosts=hosts,
+                                                     device=dev)
+            secs = time.perf_counter() - t
+            runs[hosts] = (data, secs,
+                           torch.cuda.max_memory_allocated() / 1e9,
+                           nonzero_counts())
+    finally:
+        streaming.step = step
+    check(runs[1][0] == runs[2][0], "streaming hosts=2 bytes differ from "
+          "hosts=1")
+    for hosts, (_, _, _, n) in runs.items():
+        check(n == {}, f"streaming hosts={hosts} launched kernels: {n}")
+    args, card = steps[0]
+    twin = twin_agreement(card, step(*args[:-1], torch.device("cpu")),
+                          "streaming step", ("q", "dc", "qf", "ytox",
+                                             "ytob", "sharp"))
+    data = runs[1][0]
+    out = codestream.decode(data, device=dev)[0]
+    err = float(np.abs(out.astype(int) - img.astype(int)).mean())
+    check(err < 8.0, f"streamed {BIG}^2 mean abs error {err}")
+    mp = img.shape[0] * img.shape[1]
+    rec = {"image": f"{BIG}^2 d1, {len(steps) // 2} DC groups",
+           "launches": {}, "bytes": len(data),
+           "mp_s": {h: mp_s(mp, r[1]) for h, r in runs.items()},
+           "secs": {h: r[1] for h, r in runs.items()},
+           "peak_gb": {h: r[2] for h, r in runs.items()},
+           "step_twin": twin, "mean_abs_err": err}
+    log(f"phase streaming encode ({rec['image']}, host clock): hosts=1 "
+        f"{runs[1][1]:.3f} s ({rec['mp_s'][1]:.2f} MP/s), hosts=2 "
+        f"{runs[2][1]:.3f} s ({rec['mp_s'][2]:.2f} MP/s), bytes equal; "
+        f"peak device memory {runs[1][2]:.3f} / {runs[2][2]:.3f} GB; "
+        "first DC group's step vs CPU twin: "
+        + ", ".join(f"{k} {v['differ']}/{v['of']}" for k, v in twin.items())
+        + f"; decoded mean abs error {err:.3f}; {smi}")
+    return data, rec
+
+
+def strip_split(stream, dev):
+    """decode_vardct_strips(..., device=dev) of `stream` with its mark
+    hook: each stage's CUDA-event ms summed over the strips, then divided
+    by their number; the "strip" stage is the time from the previous
+    strip's end (the host entropy decode of the next group row). Returns
+    ({stage: mean ms a strip}, strips)."""
+    import torch
+
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.io.bits import BitReader
+    from libjxl_tpu_torch.io.frame_header import FrameHeader
+    from libjxl_tpu_torch.vardct.low_memory import decode_vardct_strips
+
+    r = BitReader(stream)
+    fh = FrameHeader(codestream.parse_codestream_header(r))
+    fh.read(r)
+    ev = torch.cuda.Event(enable_timing=True)
+    ev.record()
+    events = [(None, ev)]
+
+    def mark(stage, _value):
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        events.append((stage, e))
+
+    strips = list(decode_vardct_strips(r, fh, device=dev, mark=mark))
+    torch.cuda.synchronize()
+    total = {}
+    for (_, a), (stage, b) in zip(events, events[1:]):
+        total[stage] = total.get(stage, 0.0) + a.elapsed_time(b)
+    return {k: v / len(strips) for k, v in total.items()}, strips
+
+
+def check_strip_kernels(stream, dev):
+    """K1 and K2 against their plain twins on the strip path's own inputs:
+    decode_vardct_strips(stream, device=dev) with a mark hook that keeps
+    the render arguments and the true-size mirror's output (render_tail's
+    input) of the first strip, the second (interior when there are three
+    or more) and the last (the true-size one where the frame is not a
+    multiple of 8). Each kernel is held to its twin on each of them as
+    check_single_kernels does: dequant_idct8 at K1_TOL, render_tail's XYB
+    at tail_tol(epf) and its u8 within U8_BOUND steps; then both are
+    timed back to back on the second strip, each launch copying its
+    tables as on the strip path. Returns {kernel: record}."""
+    import torch
+
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.io.bits import BitReader
+    from libjxl_tpu_torch.io.frame_header import FrameHeader
+    from libjxl_tpu_torch.ops import kernels, pipeline
+    from libjxl_tpu_torch.vardct.low_memory import decode_vardct_strips
+
+    r = BitReader(stream)
+    fh = FrameHeader(codestream.parse_codestream_header(r))
+    fh.read(r)
+    kept, started = {}, [0]
+
+    def mark(stage, value):
+        if stage == "strip":
+            i = started[0]
+            started[0] += 1
+            if i - 1 >= 2:  # keep the first two strips and the latest
+                del kept[i - 1]
+            kept[i] = {}
+        elif stage in ("upload", "true-size mirror"):
+            kept[started[0] - 1][stage] = value
+
+    n = len(list(decode_vardct_strips(r, fh, device=dev, mark=mark)))
+    check(sorted(kept) == sorted({0, min(1, n - 1), n - 1})
+          and all(len(k) == 2 for k in kept.values()),
+          f"the strip path rendered strips {sorted(kept)} of {n} without "
+          "the device")
+    k1 = {"max_abs_err": 0.0, "strips": []}
+    k2 = {"max_abs_err": 0.0, "u8_max_steps": 0, "strips": []}
+    with torch.inference_mode():
+        for i in sorted(kept):
+            (args, kw), xyb = kept[i]["upload"], kept[i]["true-size mirror"]
+            where = (f"strip {i} of {n} ({xyb.shape[1]}x{xyb.shape[2]}, "
+                     f"true size {kw['true_size']})")
+            got = kernels.dequant_idct8(*args[:9])
+            ref = pipeline.decode_xyb_image(*args[:9])
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            check(torch.allclose(got, ref, **K1_TOL), f"dequant_idct8 on "
+                  f"{where} disagrees with decode_xyb_image: max abs err "
+                  f"{err}")
+            k1["max_abs_err"] = max(k1["max_abs_err"], err)
+            k1["strips"].append({"strip": i, "rows": xyb.shape[1],
+                                 "max_abs_err": err})
+            gab, isg, sad, cs, epf = args[9:14]
+            tail = (xyb, gab, isg, sad, cs, epf, kw["pass0_sigma_scale"],
+                    kw["pass2_sigma_scale"])
+            got = kernels.render_tail(*tail, out="xyb")
+            ref = pipeline.render_tail_plain(*tail, out="xyb")
+            torch.cuda.synchronize()
+            err = max_err(got, ref)
+            check(torch.allclose(got, ref, **tail_tol(epf)), f"render_tail "
+                  f"on {where} (XYB) disagrees with render_tail_plain: max "
+                  f"abs err {err}")
+            got = kernels.render_tail(*tail, out="u8srgb")
+            ref = pipeline.render_tail_plain(*tail, out="u8srgb")
+            torch.cuda.synchronize()
+            steps = int((got.int() - ref.int()).abs().max())
+            check(steps <= U8_BOUND, f"render_tail on {where} (u8) is "
+                  f"{steps} steps from render_tail_plain")
+            k2["max_abs_err"] = max(k2["max_abs_err"], err)
+            k2["u8_max_steps"] = max(k2["u8_max_steps"], steps)
+            k2["strips"].append({"strip": i, "rows": xyb.shape[1],
+                                 "true_size": kw["true_size"],
+                                 "max_abs_err": err, "u8_max_steps": steps})
+        (args, kw), xyb = kept[min(1, n - 1)]["upload"], \
+            kept[min(1, n - 1)]["true-size mirror"]
+        qimg = args[0]
+        k1.update({"ms": cuda_ms(lambda: kernels.dequant_idct8(*args[:9]),
+                                 20),
+                   "plain_ms": cuda_ms(
+                       lambda: pipeline.decode_xyb_image(*args[:9]), 3),
+                   **bound(tensor_bytes(*args[:6]) + 4 + 4 * qimg.numel(),
+                           K1_OPS * qimg.numel())})
+        gab, isg, sad, cs, epf = args[9:14]
+        tail = (xyb, gab, isg, sad, cs, epf, kw["pass0_sigma_scale"],
+                kw["pass2_sigma_scale"])
+        k2.update({"ms": cuda_ms(lambda: kernels.render_tail(
+            *tail, out="u8srgb"), 20),
+                   "plain_ms": cuda_ms(lambda: pipeline.render_tail_plain(
+                       *tail, out="u8srgb"), 3),
+                   **bound(*tail_work(xyb[None], isg, sad, gab,
+                                      pipeline.EPF_CHAINS[epf], "u8srgb"))})
+    return {"dequant_idct8": k1, "render_tail": k2}
+
+
+def drive_strips(img, e5_stream, odd_stream, dev, smi):
+    """The bounded-memory decode of the BIG^2 photo at e3 (encoded by
+    encode_lossy(device=dev)): decode_rows(s, device=dev) with the counters
+    reset just before: every strip u8, dequant_idct8 and render_tail once
+    a strip, the rows within 1 u8 step of decode(s, device=dev) and of
+    decode_rows(s, device=None); the per-strip split; both kernels held to
+    their twins on its strips' inputs (check_strip_kernels); MP/s and peak
+    device memory beside the whole-image decode's. Then the same for an
+    e3 stream whose size is not a multiple of 8 (its last strip has a
+    true size): rows within 1 step of decode(device=dev), kernels against
+    twins. Then an e5 stream, outside the device scope: the host strips,
+    no launch, decode_rows(device=None)'s rows. Returns (launches,
+    record)."""
+    import torch
+
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+
+    t = time.perf_counter()
+    data = codestream.encode_lossy(img, distance=1.0, effort=3, device=dev)
+    enc_s = time.perf_counter() - t
+    torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    whole = codestream.decode(data, device=dev)[0]
+    whole_s = time.perf_counter() - t
+    whole_gb = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    reset_launch_counts()
+    t = time.perf_counter()
+    rows = list(codestream.decode_rows(data, device=dev))
+    rows_s = time.perf_counter() - t
+    launches = nonzero_counts()
+    rows_gb = torch.cuda.max_memory_allocated() / 1e9
+    n = len(rows)
+    check(all(r.dtype == np.uint8 for _, r in rows),
+          "a device strip is not u8")
+    check(launches == {"dequant_idct8": n, "render_tail": n},
+          f"strip path launches {launches} for {n} strips")
+    cat = np.concatenate([r for _, r in rows], axis=0)
+    near_host(cat, whole, "decode_rows(device) vs decode(device)")
+    t = time.perf_counter()
+    host = np.concatenate([r for _, r in codestream.decode_rows(
+        data, device=None)], axis=0)
+    host_s = time.perf_counter() - t
+    steps, share = near_host(cat, host, "decode_rows(device) vs "
+                             "decode_rows(device=None)")
+    split, strips = strip_split(data, dev)
+    check(np.array_equal(np.concatenate([r for _, r in strips], axis=0),
+                         cat), "the split's strips differ from decode_rows'")
+    twins = check_strip_kernels(data, dev)
+    odd_rows = np.concatenate([r for _, r in codestream.decode_rows(
+        odd_stream, device=dev)], axis=0)
+    odd_steps, _ = near_host(odd_rows, codestream.decode(
+        odd_stream, device=dev)[0], "decode_rows(device) vs decode(device), "
+        f"{odd_rows.shape[1]}x{odd_rows.shape[0]}")
+    odd_twins = check_strip_kernels(odd_stream, dev)
+    for name, rec in twins.items():
+        rec["max_abs_err"] = max(rec["max_abs_err"],
+                                 odd_twins[name]["max_abs_err"])
+        rec["odd_strips"] = odd_twins[name]["strips"]
+    twins["render_tail"]["u8_max_steps"] = max(
+        twins["render_tail"]["u8_max_steps"],
+        odd_twins["render_tail"]["u8_max_steps"])
+    reset_launch_counts()
+    e5_rows = np.concatenate([r for _, r in codestream.decode_rows(
+        e5_stream, device=dev)], axis=0)
+    e5_launches = nonzero_counts()
+    check(e5_launches == {}, f"the e5 stream launched {e5_launches}: it is "
+          "outside the strips' device scope")
+    check(np.array_equal(e5_rows, np.concatenate(
+        [r for _, r in codestream.decode_rows(e5_stream, device=None)],
+        axis=0)), "the e5 stream's strips differ from the host strips")
+    mp = img.shape[0] * img.shape[1]
+    rec = {"image": f"{BIG}^2 d1/e3, device-encoded", "strips": n,
+           "launches": launches, "encode_s": enc_s,
+           "rows_mp_s": mp_s(mp, rows_s), "whole_mp_s": mp_s(mp, whole_s),
+           "host_rows_mp_s": mp_s(mp, host_s),
+           "peak_gb": rows_gb, "whole_peak_gb": whole_gb,
+           "split_ms_per_strip": split, "twins": twins,
+           "steps_vs_host": steps, "share_vs_host": share,
+           "odd_steps_vs_whole": odd_steps}
+    log(f"phase bounded-memory strips ({rec['image']}, {n} strips): "
+        f"decode_rows(device) {rows_s:.3f} s ({rec['rows_mp_s']:.2f} MP/s)"
+        f", peak device memory {rows_gb:.3f} GB beside decode(device)'s "
+        f"{whole_gb:.3f} GB ({whole_s:.3f} s); host strips {host_s:.3f} s; "
+        f"per strip (CUDA events): "
+        + ", ".join(f"{k} {v:.4f} ms" for k, v in split.items())
+        + "; on the second strip's inputs, back to back: " + ", ".join(
+            f"{k} {v['ms']:.4f} ms (plain {v['plain_ms']:.4f}, bound "
+            f"{v['bound_ms']:.4f})" for k, v in twins.items())
+        + "; twins agree on strips "
+        + str([r["strip"] for r in twins["dequant_idct8"]["strips"]])
+        + f" and on all {len(twins['dequant_idct8']['odd_strips'])} of the "
+        f"{odd_rows.shape[1]}x{odd_rows.shape[0]} stream (K1 max abs err "
+        f"{twins['dequant_idct8']['max_abs_err']:.3g}, render_tail "
+        f"{twins['render_tail']['max_abs_err']:.3g}, u8 "
+        f"{twins['render_tail']['u8_max_steps']} step(s))"
+        + f"; max {steps} step(s) from the host strips; e5 stream: host "
+        f"strips, no launch; device encode of the image {enc_s:.3f} s; "
+        f"{smi}")
+    return launches, rec
+
+
 def main():
     import torch
 
@@ -1137,6 +1607,25 @@ def main():
     log(f"phase single-image + mixed decode_batch: "
         f"{time.perf_counter() - t:.2f} s")
 
+    # the device encode, the streaming encode and the bounded-memory
+    # strips, each counted
+    t = time.perf_counter()
+    paths = {"encode": drive_encode(dev, smi)}
+    big = make_image(BIG, BIG, 600)
+    _, paths["streaming"] = drive_streaming(big, dev, smi)
+    strip_launches, paths["strips"] = drive_strips(big, e5_s[0][0],
+                                                   odd_s[0], dev, smi)
+    del big
+    for rec in records[:2]:
+        name = rec["name"]
+        rec["strips"] = {
+            "launches": strip_launches[name],
+            "strips": paths["strips"]["strips"],
+            "ms_per_strip": paths["strips"]["split_ms_per_strip"][name],
+            "max_abs_err": paths["strips"]["twins"][name]["max_abs_err"]}
+    log(f"phase encode + streaming + strips: "
+        f"{time.perf_counter() - t:.2f} s")
+
     # the TPU gather probes S1-S7 and the device-entropy profile
     t = time.perf_counter()
     errs = check_probes(small_s, main_s[:BATCH], dev)
@@ -1172,6 +1661,7 @@ def main():
         "synchronized at each end): " + ", ".join(
             f"{k} {v * 1e3:.4f} ms" for k, v in stages.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
+    print(json.dumps({"paths": paths}), flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -212,6 +212,7 @@ def encode_lossy(image: np.ndarray, distance: float = 1.0,
                  preview: int = None,
                  spot_color=None,
                  stats: dict = None,
+                 device="cuda",
                  gaborish: bool = None,
                  epf: int = None,
                  dots: bool = None,
@@ -229,7 +230,13 @@ def encode_lossy(image: np.ndarray, distance: float = 1.0,
     (modular sub-streams, enc_modular.cc do_color=false path).
     photon_noise_iso: if set, signal synthetic photon noise (kNoise flag).
     icc: optional raw ICC profile to embed (signals want_icc; the pixel
-    data is still XYB-coded, the profile describes the decode target)."""
+    data is still XYB-coded, the profile describes the decode target).
+    device: at efforts <= 3 with none of the special features, the
+    compute path (XYB, inverse Gaborish, adaptive quant field, DCT, CfL,
+    quantization) runs as torch ops on this device
+    (tpu_codec.encode_lossy_tpu) and only the entropy coding on the host:
+    "cuda" by default (a missing card raises), "cpu" runs the same ops on
+    the CPU, None encodes on the host. Other encodes ignore it."""
     from ..io.frame_header import (
         FLAG_NOISE,
         FLAG_SKIP_ADAPTIVE_DC_SMOOTHING,
@@ -241,6 +248,21 @@ def encode_lossy(image: np.ndarray, distance: float = 1.0,
     from ..ops.xyb import srgb_to_linear, srgb_u8_to_linear
     from ..vardct.frame import encode_vardct_frame
 
+    # the device route: at the DCT8 efforts (<= e3, the "XYB jpeg" tier)
+    # with no special coding features (enc_group.cc's SIMD loops against
+    # enc_ans.cc's stream writing)
+    if (device is not None and effort <= 3 and distance > 0
+            and image.ndim == 3 and image.shape[2] == 3
+            and image.dtype == np.uint8
+            and icc is None and photon_noise_iso is None and not noise
+            and resampling == 1 and progressive == 1 and preview is None
+            and splines is None and custom_quant is None
+            and spot_color is None and stats is None and debug_cb is None
+            and dots is None and patches is None):
+        from .tpu_codec import encode_lossy_tpu
+
+        return encode_lossy_tpu(image, distance=distance,
+                                gaborish=gaborish, epf=epf, device=device)
     public_distance = distance
     distance = _calibrated_distance(distance)
     if image.ndim == 2:
@@ -486,6 +508,75 @@ def encode_lossy(image: np.ndarray, distance: float = 1.0,
         from .stats import collect_stats
 
         stats.update(collect_stats(writer))
+    return writer.get_bytes()
+
+
+def encode_lossy_streaming(image_or_chunks, width: int = None,
+                           height: int = None, distance: float = 1.0,
+                           hosts: int = 1, device="cuda") -> bytes:
+    """Streaming VarDCT encode: one 2048x2048 DC group at a time with
+    bounded memory (EncodeFrameStreaming analog, enc_frame.cc:1975).
+
+    image_or_chunks: either an (H, W, 3) uint8 sRGB array, or a callable
+    get_chunk(px0, py0, w, h) -> (3, h, w) linear RGB float (with
+    width/height given). hosts > 1 encodes disjoint DC-group slices in
+    parallel — the multi-host decomposition demo. device: where each DC
+    group's pixel math runs, "cuda" by default (a missing card raises) or
+    "cpu"; there is no host route (the JAX package always ran this step
+    as a device program), so None raises ValueError."""
+    if device is None:
+        raise ValueError("encode_lossy_streaming runs its DC-group step "
+                         "on a torch device; device=None has no host "
+                         "route")
+    public_distance = distance
+    distance = _calibrated_distance(distance)
+    from ..io.frame_header import (
+        CT_XYB,
+        ENC_VARDCT,
+        FLAG_SKIP_ADAPTIVE_DC_SMOOTHING,
+        FT_REGULAR,
+        FrameHeader,
+    )
+    from ..ops.xyb import srgb_to_linear, srgb_u8_to_linear
+    from ..vardct.streaming import encode_vardct_frame_streaming
+
+    if callable(image_or_chunks):
+        get_chunk = image_or_chunks
+        if width is None or height is None:
+            raise ValueError("width/height required with a chunk provider")
+        w_, h_ = width, height
+    else:
+        img = image_or_chunks
+        if img.ndim == 2:
+            img = np.repeat(img[:, :, None], 3, axis=2)
+        h_, w_ = img.shape[:2]
+        # extra channels are not part of the streaming path (v1)
+        rgb_full = np.moveaxis(
+            srgb_to_linear(img[:, :, :3].astype(np.float64) / 255.0), -1, 0)
+        pad_y = (-h_) % 8
+        pad_x = (-w_) % 8
+        rgb_full = np.pad(rgb_full, ((0, 0), (0, pad_y), (0, pad_x)),
+                          mode="edge")
+
+        def get_chunk(px0, py0, cw, ch):
+            return rgb_full[:, py0:py0 + ch, px0:px0 + cw]
+
+    meta = CodecMetadata()
+    meta.size = SizeHeader().set(w_, h_)
+    writer = BitWriter()
+    write_codestream_header(writer, meta)
+    fh = FrameHeader(meta)
+    fh.all_default = False
+    fh.frame_type = FT_REGULAR
+    fh.encoding = ENC_VARDCT
+    fh.color_transform = CT_XYB
+    fh.flags = 0  # adaptive DC smoothing on (see encode_lossy)
+    fh.loop_filter.all_default = False
+    fh.loop_filter.gab = True
+    fh.loop_filter.epf_iters = 2
+    encode_vardct_frame_streaming(writer, get_chunk, fh, distance=distance,
+                                  hosts=hosts, dc_distance=public_distance,
+                                  device=device)
     return writer.get_bytes()
 
 
@@ -1061,6 +1152,115 @@ def decode_dc(data: bytes):
     xyb_dc = np.asarray(state.dc[:, :ny, :nx], dtype=np.float64)
     rgb = np.clip(xyb_to_linear_rgb(xyb_dc), 0.0, 1.0)
     return linear_to_srgb_u8(np.moveaxis(rgb, 0, -1)), meta
+
+
+def decode_rows(data: bytes, num_threads: int = 0, device="cuda"):
+    """Bounded-memory decode: generator of (y0, uint8 rows (h, W, 3)).
+
+    The low-memory group-at-a-time scheduler
+    (vardct/low_memory.py; reference low_memory_render_pipeline.cc):
+    peak pixel memory is three AC-group rows plus the 1/64-area DC
+    fields (plus any extra-channel planes at 1-2 B/px), never the full
+    float image. Supported strip-wise: progressive passes, 2-8x
+    upsampling (exact seam context), subsampled YCbCr, 16-bit integer
+    output, alpha/extra channels, splines and patch dictionaries
+    (clipped per-strip blends; the small patch sheets decode
+    whole-image first). JXLError is raised for animation blending,
+    alpha-blend patches, modular-mode frames, float/deep samples and
+    CMS output — fall back to decode().
+
+    device: a torch device, "cuda" by default (a missing card raises),
+    renders each strip of an 8-bit stream inside the device scope there
+    (vardct/low_memory.py: dequant_idct8 and render_tail once a strip,
+    sRGB u8 rows back); "cpu" runs the same render on the plain twins;
+    None renders every strip on the host. Streams outside the scope take
+    the host strips.
+    """
+    from ..io.frame_header import ENC_MODULAR as _MOD, FT_REGULAR
+    from ..ops.xyb import linear_to_srgb, xyb_to_linear_rgb
+    from ..vardct.low_memory import decode_vardct_strips
+
+    if device is not None:
+        from ..base.device import resolve_device
+
+        device = resolve_device(device)
+    r = BitReader(data)
+    meta = parse_codestream_header(r)
+    bits = meta.m.bit_depth.bits_per_sample
+    if meta.m.bit_depth.floating_point_sample or bits > 16:
+        raise JXLError("low-memory decode: float/deep sample output")
+    if meta.m.orientation != 1:
+        raise JXLError("low-memory decode: orientation")
+    if meta.m.have_preview:
+        raise JXLError("low-memory decode: preview frame")
+    # non-XYB streams are fine when YCbCr (JPEG-transcode family):
+    # strips come back as YCbCr planes and convert below
+    if meta.m.color_encoding.want_icc:
+        raise JXLError("low-memory decode: CMS output stage")
+    from ..io.frame_header import FT_REFERENCE_ONLY as _FT_REF_LM
+
+    reference_frames = [None] * 4
+    reference_extra = [None] * 4
+    while True:
+        fh = FrameHeader(meta)
+        fh.read(r)
+        if fh.frame_type == _FT_REF_LM:
+            # patch sheets are small by construction; decode them
+            # whole-image and stash, then strip the main frame
+            _stash_reference_frame(r, fh, meta, reference_frames,
+                                   reference_extra)
+            r.jump_to_byte_boundary()
+            continue
+        break
+    if fh.frame_type != FT_REGULAR or not fh.is_last:
+        raise JXLError("low-memory decode: multi-frame stream")
+    if fh.encoding == _MOD:
+        raise JXLError("low-memory decode: modular frame")
+    from ..io.frame_header import CT_YCBCR as _CT_YCBCR_LM
+
+    ycbcr = fh.color_transform == _CT_YCBCR_LM
+    if not meta.m.xyb_encoded and not ycbcr:
+        raise JXLError("low-memory decode: non-XYB/non-YCbCr stream")
+    maxval = (1 << min(bits, 16)) - 1
+    odt = np.uint8 if bits <= 8 else np.uint16
+
+    def with_ec(rows_px, ec):
+        if not ec:
+            return rows_px
+        ecs = np.stack([np.clip(np.round(e), 0, maxval).astype(odt)
+                        for e in ec], axis=-1)
+        return np.concatenate([rows_px, ecs], axis=-1)
+
+    for item in decode_vardct_strips(
+            r, fh, num_threads, device=device if bits <= 8 else None,
+            reference_frames=reference_frames,
+            reference_extra=reference_extra):
+        y0, strip = item[0], item[1]
+        ec = item[2] if len(item) > 2 else None
+        if strip.dtype == np.uint8:
+            # device-rendered strip: already final sRGB u8 rows
+            yield y0, strip
+            continue
+        if ycbcr:
+            from ..vardct.frame import ycbcr_to_rgb
+
+            rgb = ycbcr_to_rgb(strip)
+            yield y0, with_ec(np.clip(
+                np.round(np.moveaxis(rgb, 0, -1) * maxval), 0,
+                maxval).astype(odt), ec)
+            continue
+        rgb = xyb_to_linear_rgb(strip)
+        if bits <= 8:
+            from ..ops.xyb import linear_to_srgb_u8
+
+            yield y0, with_ec(linear_to_srgb_u8(
+                np.moveaxis(rgb, 0, -1)), ec)
+        else:
+            # HDR leg: 9-16 bit sRGB-transfer samples per row
+            srgb = linear_to_srgb(
+                np.clip(np.moveaxis(rgb, 0, -1), 0.0, 1.0))
+            yield y0, with_ec(np.clip(np.round(srgb * maxval), 0,
+                                      maxval).astype(np.uint16), ec)
 
 
 def decode_preview(data: bytes):

@@ -1,6 +1,6 @@
-"""VarDCT decode on one device (the port of libjxl_tpu/api/tpu_codec.py's
-decode_tpu_batch, decode_tpu_batch_entropy and single-image decode
-paths).
+"""VarDCT decode and encode on one device (the port of
+libjxl_tpu/api/tpu_codec.py's decode_tpu_batch, decode_tpu_batch_entropy,
+single-image decode and encode_lossy_tpu paths).
 
 N same-geometry, all-DCT8, XYB streams are entropy-decoded on the host by
 the port's copy of the host decoder (prepare_batch), staged as one batch
@@ -20,6 +20,11 @@ strategies' inverse transforms as torch ops, render_tail), or a YCbCr
 frame (render_tail for its filters), with the reference's scope gates
 and path records; decode is its first-frame entry.
 
+encode_lossy_tpu, codestream.encode_lossy's route at efforts <= 3, runs
+the encode step (pipeline.encode_step: XYB, adaptive quant field, inverse
+Gaborish, DCT8, CfL, dead-zone quantization; torch ops, no hand kernel)
+on the device and the entropy coding on the host.
+
 Nothing here probes or imports JAX: the host layers it calls
 (codestream header parsing, decode_vardct_frame, render.pipeline
 helpers, the ops/ans_tpu plan builder) are the port's own copies of the
@@ -38,10 +43,11 @@ from torch import nn
 
 from ..base.device import resolve_device
 from ..base.status import JXLError
-from ..io.bits import BitReader
+from ..io.bits import BitReader, BitWriter
 from ..io.frame_header import FrameHeader
 from ..ops import ans_kernel, ans_tpu, kernels, pipeline
-from ..render.pipeline import _sad_mul_map, compute_sigma, gaborish_kernel
+from ..ops.staging import (block_sigma, dequant_tables, f32, gab_kernels,
+                           sad_mul, to_device)
 from ..vardct import ac_strategy as acs
 from ..vardct.frame import decode_vardct_frame
 from .codestream import _skip_or_decode_preview, parse_codestream_header
@@ -98,11 +104,6 @@ def _parse(streams, **frame_kw):
     return states, fhs
 
 
-def _dequant_tables(st):
-    return np.stack([st.matrices.dequant_matrix(0, c)
-                     for c in range(3)]).astype(np.float32)
-
-
 def _check_render_scope(st, fh, st0, fh0, dm0) -> None:
     """The render-config gates: one stream against the batch's first."""
     if st.patches is not None or st.splines is not None \
@@ -118,38 +119,10 @@ def _check_render_scope(st, fh, st0, fh0, dm0) -> None:
                 "epf_pass0_sigma_scale", "epf_pass2_sigma_scale",
                 "epf_border_sad_mul") if lf.epf_iters):
         raise JXLError("batch decode: mixed filter config")
-    if not np.array_equal(_dequant_tables(st), dm0):
+    if not np.array_equal(dequant_tables(st), dm0):
         raise JXLError("batch decode: mixed dequant tables")
     if (st.x_dm_mult, st.b_dm_mult) != (st0.x_dm_mult, st0.b_dm_mult):
         raise JXLError("batch decode: mixed qm scales")
-
-
-def _gab_kernels(lf):
-    """The Gaborish kernels f32[3, 3, 3] of a frame's loop filter; None
-    without Gaborish."""
-    if not lf.gab:
-        return None
-    return np.stack([gaborish_kernel(getattr(lf, f"gab_{ch}_weight1"),
-                                     getattr(lf, f"gab_{ch}_weight2"))
-                     for ch in "xyb"]).astype(np.float32)
-
-
-def _sigma(state, lf):
-    """The EPF inverse sigma per BLOCK, f32[nby, nbx] (64x less to upload
-    than per pixel; the kernel reads it per block); zeros without EPF."""
-    if lf.epf_iters > 0:
-        return compute_sigma(lf, state.quantizer.global_scale_float,
-                             state.raw_quant_field,
-                             state.epf_sharpness).astype(np.float32)
-    return np.zeros((state.fd.ysize_blocks, state.fd.xsize_blocks),
-                    dtype=np.float32)
-
-
-def _sad_mul(lf, h, w):
-    """The EPF SAD multiplier map f32[h, w] (ones without EPF)."""
-    if lf.epf_iters > 0:
-        return _sad_mul_map(h, w, lf.epf_border_sad_mul).astype(np.float32)
-    return np.ones((h, w), dtype=np.float32)
 
 
 def _stage(states, fhs, dm0):
@@ -164,10 +137,10 @@ def _stage(states, fhs, dm0):
     ytob = np.stack([st.ytob_map for st in states]).astype(np.int32)
     igs = np.array([st.quantizer.inv_global_scale for st in states],
                    dtype=np.float32)
-    isp = np.stack([_sigma(st, fh.loop_filter)
+    isp = np.stack([block_sigma(st, fh.loop_filter)
                     for st, fh in zip(states, fhs)])
-    sad = _sad_mul(lf0, h, w)
-    gabk = _gab_kernels(lf0)
+    sad = sad_mul(lf0, h, w)
+    gabk = gab_kernels(lf0)
     if gabk is None:
         gabk = np.zeros((3, 3, 3), dtype=np.float32)
     ts = (fd0.ysize, fd0.xsize) if (fd0.ysize, fd0.xsize) != (h, w) \
@@ -192,7 +165,7 @@ def prepare_batch(streams, num_threads: int = 0):
     homogeneous all-DCT8 batch; callers decode such streams one by one."""
     states, fhs = _parse(streams, num_threads=num_threads)
     fd0 = states[0].fd
-    dm0 = _dequant_tables(states[0])
+    dm0 = dequant_tables(states[0])
     for st, fh in zip(states, fhs):
         fd = st.fd
         if (fd.ysize, fd.xsize) != (fd0.ysize, fd0.xsize):
@@ -246,7 +219,7 @@ def prepare_batch_entropy(streams):
         lane_plan = ans_kernel.build_lane_plan(plan)
     except ans_tpu.AnsTpuUnsupported as e:
         raise JXLError(f"batch decode: device entropy unsupported: {e}")
-    dm0 = _dequant_tables(states[0])
+    dm0 = dequant_tables(states[0])
     for st, fh in zip(states, fhs):
         _check_render_scope(st, fh, states[0], fhs[0], dm0)
     config, render_args = _stage(states, fhs, dm0)
@@ -579,23 +552,6 @@ def _qblocks_from_qimg(state):
             state.qblocks[(int(by), int(bx))] = tiles[i].astype(np.int64)
 
 
-def _f32(v) -> float:
-    """A host scalar rounded to f32, as the JAX path hands it over."""
-    return float(np.float32(v))
-
-
-def to_device(obj, dev):
-    """`obj` with every numpy array in it, inside tuples, lists and dicts,
-    as a contiguous tensor on dev."""
-    if isinstance(obj, np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(obj)).to(dev)
-    if isinstance(obj, (tuple, list)):
-        return type(obj)(to_device(o, dev) for o in obj)
-    if isinstance(obj, dict):
-        return {k: to_device(v, dev) for k, v in obj.items()}
-    return obj
-
-
 def _dense_qimg(state) -> None:
     """state.qimg, the dense coefficient image: when the bulk entropy path
     did not run (small image / lz77 / prefix streams), assembled from the
@@ -630,15 +586,15 @@ def stage_image(state, fh, direct_u8: bool):
     args = (state.qimg.astype(np.int32, copy=False),
             state.raw_quant_field.astype(np.int32, copy=False),
             state.dc.astype(np.float32), state.ytox_map.astype(np.int32),
-            state.ytob_map.astype(np.int32), _dequant_tables(state),
-            _f32(state.quantizer.inv_global_scale), _f32(state.x_dm_mult),
-            _f32(state.b_dm_mult), _gab_kernels(lf), _sigma(state, lf),
-            _sad_mul(lf, h, w), tuple(_f32(v) for v in lf.epf_channel_scale),
+            state.ytob_map.astype(np.int32), dequant_tables(state),
+            f32(state.quantizer.inv_global_scale), f32(state.x_dm_mult),
+            f32(state.b_dm_mult), gab_kernels(lf), block_sigma(state, lf),
+            sad_mul(lf, h, w), tuple(f32(v) for v in lf.epf_channel_scale),
             int(lf.epf_iters))
     kwargs = dict(
         to_rgb="u8srgb" if direct_u8 else False,
-        pass0_sigma_scale=_f32(lf.epf_pass0_sigma_scale),
-        pass2_sigma_scale=_f32(lf.epf_pass2_sigma_scale),
+        pass0_sigma_scale=f32(lf.epf_pass0_sigma_scale),
+        pass2_sigma_scale=f32(lf.epf_pass2_sigma_scale),
         extra_tiles=extra, tile_shapes=shapes,
         size_passes=size_passes, size_shapes=size_shapes,
         class_map=class_map,
@@ -709,15 +665,15 @@ def _render_subsampled_device(state, fh, out, dev) -> bool:
     dm = np.stack([state.matrices.dequant_matrix(0, c).reshape(8, 8)
                    for c in range(3)]).astype(np.float32)
     args = to_device(([q.astype(np.int32, copy=False) for q in qs], dcs,
-                      scaled, dm, _gab_kernels(lf), _sigma(state, lf),
-                      _sad_mul(lf, h, w)), dev)
+                      scaled, dm, gab_kernels(lf), block_sigma(state, lf),
+                      sad_mul(lf, h, w)), dev)
     with torch.inference_mode():
         u8 = pipeline.decode_render_subsampled(
-            *args, tuple(_f32(v) for v in lf.epf_channel_scale),
+            *args, tuple(f32(v) for v in lf.epf_channel_scale),
             tuple((int(hs[c]), int(vs[c])) for c in range(3)),
             epf_iters=int(lf.epf_iters), gab=bool(lf.gab),
-            pass0_sigma_scale=_f32(lf.epf_pass0_sigma_scale),
-            pass2_sigma_scale=_f32(lf.epf_pass2_sigma_scale), to_u8=True,
+            pass0_sigma_scale=f32(lf.epf_pass0_sigma_scale),
+            pass2_sigma_scale=f32(lf.epf_pass2_sigma_scale), to_u8=True,
             true_size=(fd.ysize, fd.xsize)
             if (fd.ysize, fd.xsize) != (h, w) else None)
         out["u8"] = u8.cpu().numpy()
@@ -818,3 +774,126 @@ def decode(data: bytes, device="cuda"):
     from . import codestream
 
     return codestream.decode(data, device=device)
+
+
+# ------------------------------------------------------------------ encode
+K_AC_QUANT = 0.79
+# encode_lossy_tpu's stages, in order (the names its mark hook gets)
+ENCODE_STAGES = ("host setup", "upload", "srgb2lin", "encode step",
+                 "readback", "entropy coding")
+
+
+def enc(rgb, dm_inv, dm, inv_global_scale, base_quant, x_dm_mult,
+        b_dm_mult, qf_in=None, adaptive=True, cfl=True, gab=True,
+        distance=None):
+    """The device encode program (the JAX package's jitted `enc`):
+    pipeline.encode_step on linear RGB f32[3, H, W] on its device, then the
+    image-layout coefficients and the per-position zero counts the host
+    entropy coder takes. Returns tensors (qimg i32[3, H, W], nz i32[3,
+    64], dc f32[3, nby, nbx], qf, ytox, ytob, sharp i32)."""
+    from ..vardct.heuristics import gaborish_inverse_kernel
+
+    gab_kernel = gaborish_inverse_kernel(1.0).astype(np.float32) \
+        if gab else None
+    q, dc, qf, ytox, ytob, sharp = pipeline.encode_step(
+        rgb, dm_inv, dm, gab_kernel, inv_global_scale, base_quant,
+        x_dm_mult, b_dm_mult, adaptive=adaptive, cfl=cfl, qf_in=qf_in,
+        distance=distance)
+    qimg = pipeline.blocks_to_image(q)
+    nz = (q == 0).sum(dim=(1, 2)).reshape(3, 64).to(torch.int32)
+    return qimg, nz, dc, qf, ytox, ytob, sharp
+
+
+def encode_lossy_tpu(image: np.ndarray, distance: float = 1.0,
+                     adaptive_quant: bool = True, cfl: bool = True,
+                     gaborish: bool = None, epf: int = None,
+                     device="cuda", mark=None) -> bytes:
+    """Encode an sRGB uint8 (H, W, 3) image lossily with the encode step
+    on `device` ("cuda" by default; a missing card raises; "cpu" runs the
+    same torch ops on the CPU). Returns a bare JPEG XL codestream (DCT8
+    strategy); the host codes the entropy. gaborish/epf: loop-filter
+    overrides (None = encoder defaults). mark, when given, is called as
+    mark(stage, value) at the end of each of ENCODE_STAGES with the
+    stage's output (a timing hook)."""
+    mark = mark or (lambda stage, value: None)
+    from ..io.frame_header import CT_XYB, ENC_VARDCT, FT_REGULAR
+    from ..io.headers import CodecMetadata, SizeHeader
+    from ..vardct.ctx import QUANT_MAX
+    from ..vardct.frame import (Quantizer, encode_vardct_frame,
+                                initial_quant_dc)
+    from ..vardct.quant_weights import DequantMatrices
+    from .codestream import _calibrated_distance, write_codestream_header
+
+    dev = resolve_device(device)
+    public_distance = distance
+    distance = _calibrated_distance(distance)
+    if image.ndim == 2:
+        image = np.repeat(image[:, :, None], 3, axis=2)
+    h, w, _ = image.shape
+    meta = CodecMetadata()
+    meta.size = SizeHeader().set(w, h)
+    writer = BitWriter()
+    write_codestream_header(writer, meta)
+    fh = FrameHeader(meta)
+    fh.all_default = False
+    fh.frame_type = FT_REGULAR
+    fh.encoding = ENC_VARDCT
+    fh.color_transform = CT_XYB
+    fh.flags = 0  # adaptive DC smoothing on (see codestream.encode_lossy)
+    fh.loop_filter.all_default = False
+    fh.loop_filter.gab = True if gaborish is None else bool(gaborish)
+    fh.loop_filter.epf_iters = 2 if epf is None else max(0, min(3, epf))
+
+    fd = fh.frame_dimensions()
+    # pad to a block multiple
+    srgb = image.astype(np.float32) / 255.0
+    srgb = np.moveaxis(srgb, -1, 0)
+    srgb = np.pad(srgb, ((0, 0), (0, fd.ysize_padded - h),
+                         (0, fd.xsize_padded - w)), mode="edge")
+
+    # the quantizer setup on the host (encode_vardct_frame's): with the
+    # adaptive field, which runs in the device step, the host fixes only
+    # the global scale from the 0.39/d anchor (enc_heuristics.cc:1115)
+    matrices = DequantMatrices()
+    quantizer = Quantizer(matrices)
+    quant_ac = K_AC_QUANT / distance
+    quant_dc = initial_quant_dc(public_distance)
+    if adaptive_quant:
+        quant_median = 0.39 / distance
+        quantizer.compute_global_scale_and_quant(quant_dc, quant_median)
+        base_quant = 0  # unused on the adaptive path
+    else:
+        quantizer.compute_global_scale_and_quant(quant_dc, quant_ac)
+        base_quant = max(1, min(QUANT_MAX, int(
+            quant_ac * quantizer.inv_global_scale + 0.5)))
+    dm = np.stack([matrices.dequant_matrix(0, c)
+                   for c in range(3)]).astype(np.float32)
+    dm_inv = np.stack([matrices.inv_matrix(0, c)
+                       for c in range(3)]).astype(np.float32)
+    x_dm_mult = (1 / 1.25) ** (fh.x_qm_scale - 2.0)
+    b_dm_mult = (1 / 1.25) ** (fh.b_qm_scale - 2.0)
+
+    mark("host setup", srgb)
+    srgb_t, dm_inv_t, dm_t = to_device((srgb, dm_inv, dm), dev)
+    mark("upload", srgb_t)
+    with torch.inference_mode():
+        rgb = pipeline.srgb2lin(srgb_t)
+        mark("srgb2lin", rgb)
+        out = enc(rgb, dm_inv_t, dm_t, f32(quantizer.inv_global_scale),
+                  f32(base_quant), f32(x_dm_mult), f32(b_dm_mult),
+                  adaptive=adaptive_quant, cfl=cfl, gab=fh.loop_filter.gab,
+                  distance=float(distance) if adaptive_quant else None)
+        mark("encode step", out)
+        qimg, nz, dc, qf, ytox, ytob, sharp = host = tuple(
+            t.cpu().numpy() for t in out)
+        mark("readback", host)
+    precomputed = {
+        "quant_median": quant_median if adaptive_quant else quant_ac,
+        "qimg": qimg, "nz": nz, "dc": dc, "qf": qf, "ytox_map": ytox,
+        "ytob_map": ytob, "sharp": sharp}
+    encode_vardct_frame(writer, None, fh, distance=distance,
+                        precomputed=precomputed,
+                        dc_distance=public_distance)
+    data = writer.get_bytes()
+    mark("entropy coding", data)
+    return data

@@ -1,6 +1,6 @@
-"""Plain torch stages of the VarDCT decode.
+"""Plain torch stages of the VarDCT decode and encode.
 
-The port of libjxl_tpu/ops/pipeline.py's decode stages, with its function
+The port of libjxl_tpu/ops/pipeline.py's stages, with its function
 names minus the `_jax` suffix and its layouts: images are f32[3, H, W]
 planar XYB or RGB, and an explicit batch dimension may lead
 ([B, 3, H, W], per-block maps [B, nby, nbx]) on the all-DCT8 stages.
@@ -15,7 +15,8 @@ a CPU tensor. The other block strategies' inverse transforms
 (decode_special_tiles, decode_big_tiles, decode_size_pass), which the
 reference left to XLA, are torch ops on either device. render_tail_tiled
 runs the render tail tile by tile as the kernel does (halos, per-stage
-mirror refills at the frame edge), in plain torch.
+mirror refills at the frame edge), in plain torch. The encode stages
+(encode_step and what it calls, at the end) have no hand kernel.
 """
 
 from __future__ import annotations
@@ -29,8 +30,9 @@ from ..io.headers import (
     DEFAULT_INVERSE_OPSIN_MATRIX,
     DEFAULT_QUANT_BIAS,
     OPSIN_ABSORBANCE_BIAS,
+    OPSIN_ABSORBANCE_MATRIX,
 )
-from .dct import inv_matrix
+from .dct import fwd_matrix, inv_matrix
 
 COLOR_TILE_BLOCKS = 8
 # decode_render_image's stages, in order (the names its mark hook gets)
@@ -46,7 +48,9 @@ BASE_B = 1.0
 @functools.lru_cache(maxsize=None)
 def _consts():
     return {
+        "fwd8": fwd_matrix(8).astype(np.float32),
         "inv8": inv_matrix(8).astype(np.float32),
+        "opsin": np.asarray(OPSIN_ABSORBANCE_MATRIX, dtype=np.float32),
         "opsin_inv": np.asarray(DEFAULT_INVERSE_OPSIN_MATRIX,
                                 dtype=np.float32),
         "bias": np.float32(OPSIN_ABSORBANCE_BIAS),
@@ -635,3 +639,315 @@ def decode_render_subsampled(qs, dcs, scaled_maps, dm, gab_kernels,
         u8 = torch.clamp(torch.round(rgb * 255.0), 0, 255).to(torch.uint8)
         return u8.permute(1, 2, 0).contiguous()
     return rgb
+
+
+# ------------------------------------------------------------------ encode
+# The device encode stages (libjxl_tpu/ops/pipeline.py's encode_step and
+# what it calls; libjxl_tpu/api/tpu_codec.py's srgb2lin). The TPU ran them
+# as one XLA program, no Pallas kernel; here they are plain torch ops on
+# the caller's device. Every expression keeps the reference's order of
+# operations: a quantized value is a rounding of these floats.
+
+def srgb2lin(srgb: torch.Tensor) -> torch.Tensor:
+    """sRGB transfer -> linear, f32."""
+    low = srgb <= 0.04045
+    return torch.where(low, srgb / 12.92, _powf((srgb + 0.055) / 1.055, 2.4))
+
+
+def blocks_to_image(blocks: torch.Tensor) -> torch.Tensor:
+    """f32[c, nby, nbx, 8, 8] -> f32[c, nby*8, nbx*8]."""
+    c, nby, nbx, _, _ = blocks.shape
+    return blocks.permute(0, 1, 3, 2, 4).reshape(c, nby * 8, nbx * 8)
+
+
+def image_to_blocks(image: torch.Tensor) -> torch.Tensor:
+    c, h, w = image.shape
+    return image.reshape(c, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4)
+
+
+def dct8_blocks(blocks: torch.Tensor) -> torch.Tensor:
+    """Inverse of idct8_blocks: pixels -> transposed-layout coefficients
+    (fp32, TF32 off)."""
+    fwd8 = _const("fwd8", blocks.device)
+    return torch.einsum("ur,...rc,vc->...vu", fwd8, blocks, fwd8)
+
+
+def _powf(x: torch.Tensor, y: float) -> torch.Tensor:
+    """f32 x ** y (x >= 0) as the C library's powf computes it: the f32
+    exponent, the power in fp64, one rounding to f32. XLA's CPU backend
+    (the reference's) calls powf for pow and for cbrt (as
+    powf(x, f32(1/3))): this form differs from it in ~0.07% of values by
+    an ulp, torch's own f32 pow in ~1.3% (x ** (1/3)) and ~17% (x ** 2.4),
+    and a quantized coefficient follows its float across a rounding
+    boundary."""
+    return x.double().pow(float(np.float32(y))).to(x.dtype)
+
+
+def rgb_to_xyb(rgb: torch.Tensor) -> torch.Tensor:
+    """Linear RGB f32[3, H, W] -> XYB (the opsin mix, bias, cube root)."""
+    k = _consts()
+    mixed = torch.einsum("ij,jhw->ihw", _const("opsin", rgb.device),
+                         rgb) + float(k["bias"])
+    mixed = torch.clamp_min(mixed, 0.0)
+    cbrt = _powf(mixed, 1 / 3) - float(k["cbrt_bias"])
+    return torch.stack([0.5 * (cbrt[0] - cbrt[1]),
+                        0.5 * (cbrt[0] + cbrt[1]), cbrt[2]])
+
+
+def _tile_to_blocks(tile_map: torch.Tensor, nby: int,
+                    nbx: int) -> torch.Tensor:
+    """Expand a per-64px-tile map to per-block values."""
+    return _repeat2(tile_map, COLOR_TILE_BLOCKS)[:nby, :nbx]
+
+
+def _fma(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """a * b + c rounded once to f32, as a fused multiply-add: the product
+    is exact in fp64 and the sum rounds there first (a double rounding
+    that differs from one f32 rounding only when the fp64 sum lands on an
+    f32 tie). XLA's CPU backend contracts the reference's multiply-adds
+    into FMAs; torch's elementwise ops round each product."""
+    return (b.double() * float(a) + c.double()).to(c.dtype)
+
+
+def gaborish_inverse(xyb: torch.Tensor, kernel) -> torch.Tensor:
+    """5x5 sharpen (GaborishInverse, enc_gaborish.cc:21-49) as 25 shifted
+    weighted multiply-adds (fused, as the reference's compiled form) on a
+    symmetric pad of 2; kernel: f32[5, 5], the same for all channels."""
+    k = np.asarray(kernel, dtype=np.float32)
+    h, w = xyb.shape[-2:]
+    p = _pad_symmetric(xyb, 2)
+    out = None
+    for dy in range(5):
+        for dx in range(5):
+            tap = p[:, dy:dy + h, dx:dx + w]
+            out = float(k[dy, dx]) * tap if out is None \
+                else _fma(k[dy, dx], tap, out)
+    return out
+
+
+def _pad_edge(x: torch.Tensor, pad: int) -> torch.Tensor:
+    """Pad the last two dims as jnp.pad(..., mode="edge") does."""
+    h, w = x.shape[-2:]
+    iy = torch.arange(-pad, h + pad, device=x.device).clamp(0, h - 1)
+    ix = torch.arange(-pad, w + pad, device=x.device).clamp(0, w - 1)
+    return x.index_select(-2, iy).index_select(-1, ix)
+
+
+def _block_sum(img: torch.Tensor, nby: int, nbx: int) -> torch.Tensor:
+    return img.reshape(nby, 8, nbx, 8).sum(dim=(1, 3))
+
+
+def quant_field(y: torch.Tensor, nby: int, nbx: int, base_quant: float,
+                quant_max: int):
+    """heuristics.initial_quant_field + epf_sharpness_field: per-block
+    masking from local Y activity. Returns (quant_field i32, sharpness
+    i32, uniformly 4 as the reference's fast tiers set it)."""
+    h, w = nby * 8, nbx * 8
+    yp = y[:h, :w]
+    gy = torch.diff(yp, dim=0, prepend=yp[:1]).abs()
+    gx = torch.diff(yp, dim=1, prepend=yp[:, :1]).abs()
+    grad = (gy + gx).reshape(nby, 8, nbx, 8).mean(dim=(1, 3))
+    act = torch.log1p(grad * 80.0)
+    mod = torch.clamp(1.6 - 0.35 * act, 0.55, 1.8)
+    qf = torch.clamp(torch.round(float(base_quant) * mod), 1,
+                     quant_max).to(torch.int32)
+    sharp = torch.full((nby, nbx), 4, dtype=torch.int32, device=y.device)
+    return qf, sharp
+
+
+def adaptive_quant_field(xyb: torch.Tensor, nby: int, nbx: int,
+                         distance: float, rescale: float = 1.0):
+    """AdaptiveQuantizationMap (heuristics.initial_quant_field_full,
+    enc_adaptive_quantization.cc:85-660): the per-block float quant
+    field f32[nby, nbx] of the pre-sharpening XYB image."""
+    from ..vardct.heuristics import _LOG2, _SG_MUL, _SG_RETMUL, _SG_VOFFSET
+
+    quant_ac = 0.725 / max(distance, 1e-3)
+    scale = quant_ac * rescale
+    h, w = nby * 8, nbx * 8
+    yp = xyb[1][:h, :w]
+    xp = xyb[0][:h, :w]
+    bp = xyb[2][:h, :w]
+
+    def ratio_cbrt_gamma(v, invert=False):
+        eps = 1e-2
+        v = torch.clamp_min(v, 0.0)
+        num = (_SG_RETMUL * 3 * _SG_MUL) * v * v + eps
+        den = (_LOG2 * _SG_MUL) * v * v * v + (_SG_VOFFSET * _LOG2 + eps)
+        return num / den if invert else den / num
+
+    # per-pixel masking diff
+    p = _pad_edge(yp, 1)
+    base = 0.25 * (p[2:, 1:-1] + p[:-2, 1:-1] + p[1:-1, :-2] + p[1:-1, 2:])
+    gammac = ratio_cbrt_gamma(yp + 0.019)
+    diff = torch.clamp_max((gammac * (yp - base)) ** 2, 0.2)
+    k_log_offset = 27.505837037000106
+    k_mul = 211.66567973503678
+    diff = 0.25 * torch.sqrt(diff * float(np.sqrt(k_mul * 1e8))
+                             + k_log_offset)
+    pre = diff.reshape(h // 4, 4, w // 4, 4).sum(dim=(1, 3)) * 0.25
+
+    # FuzzyErosion: weighted 4 smallest of the 9-neighbourhood
+    mul = max(0.0, min(1.0, (2.0 - distance) / 2.0)) if distance < 2.0 \
+        else 0.0
+    k = np.array([0.125, 0.10 - mul * 0.10, 0.09 - mul * 0.09,
+                  0.06 - mul * 0.06])
+    k *= 0.29959705784054957 / k.sum()
+    pp = _pad_edge(pre, 1)
+    hh, ww = pre.shape
+    neigh = torch.stack([pp[1 + dy:1 + dy + hh, 1 + dx:1 + dx + ww]
+                         for dy in (-1, 0, 1) for dx in (-1, 0, 1)])
+    part = torch.sort(neigh, dim=0).values
+    eroded = (float(k[0]) * part[0] + float(k[1]) * part[1]
+              + float(k[2]) * part[2] + float(k[3]) * part[3])
+    aq = eroded.reshape(nby, 2, nbx, 2).sum(dim=(1, 3))
+
+    # ComputeMask rational polynomial
+    v1 = torch.clamp_min(aq * 0.80061762862741759, 1e-3)
+    v2 = 1.0 / (v1 + 302.59587815579727)
+    v3 = 1.0 / (v1 * v1 + 3.7179635626140772)
+    v4 = 1.0 / (v1 * v1 + 0.25 * 3.7179635626140772)
+    out = (-0.7647 + 9.4708735624378946 * v4 + 17.35036561631863 * v2
+           + 6.7943250517376494 * v3)
+
+    # HfModulation: intra-block capped |gradient| sums
+    vmin = 0.0206
+    dx_ = torch.clamp_max((yp[:, 1:] - yp[:, :-1]).abs(), vmin)
+    dy_ = torch.clamp_max((yp[1:, :] - yp[:-1, :]).abs(), vmin)
+    dx_ = torch.nn.functional.pad(dx_, (0, 1))
+    dy_ = torch.nn.functional.pad(dy_, (0, 0, 0, 1))
+    col = (torch.arange(w, device=xyb.device) % 8) != 7
+    row = (torch.arange(h, device=xyb.device) % 8) != 7
+    dx_ = dx_ * col[None, :]
+    dy_ = dy_ * row[:, None]
+    hf = _block_sum(dx_, nby, nbx) + _block_sum(dy_, nby, nbx)
+    out = out + hf * -0.38 + 0.42
+
+    # GammaModulation
+    r = ratio_cbrt_gamma(yp + 0.16 - xp, invert=True)
+    g = ratio_cbrt_gamma(yp + 0.16 + xp, invert=True)
+    overall = (_block_sum(r, nby, nbx) + _block_sum(g, nby, nbx)) \
+        * (0.5 / 64)
+    out = out + 0.1005613337192697 * torch.log2(
+        torch.clamp_min(overall, 1e-9))
+
+    # BlueModulation
+    k_limit = 0.027121074570634722
+    k_offset = 0.084381641171960495
+    p_y_eff = bp - (yp + k_offset + xp.abs())
+    contrib = torch.where(p_y_eff > 0, torch.clamp_max(p_y_eff, k_limit),
+                          0.0)
+    s = _block_sum(contrib, nby, nbx)
+    s = torch.where(s >= 32 * k_limit, 64 * k_limit - s, s)
+    s = torch.clamp_max(s, 15.398788439047934 * k_limit)
+    out = out + s * 0.14207000358439159
+
+    # final mapping: exp with distance-dependent dampening
+    base_level = 0.48 * scale
+    dampen = max(0.0, 1.0 - (distance - 2.0) / 12.0) if distance >= 2.0 \
+        else 1.0
+    return torch.exp(out) * (scale * dampen) + (1.0 - dampen) * base_level
+
+
+def fit_cfl(co: torch.Tensor, color_factor: float = 84.0,
+            base_b: float = 1.0):
+    """heuristics.fit_cfl: per-64x64-tile least squares of the X and B
+    coefficients against Y, LLF excluded. co: f32[3, nby, nbx, 8, 8], nby
+    and nbx multiples of 8. Returns (ytox, ytob) i32[nby//8, nbx//8]."""
+    _, nby, nbx, _, _ = co.shape
+    tby, tbx = nby // COLOR_TILE_BLOCKS, nbx // COLOR_TILE_BLOCKS
+    mask = torch.ones((8, 8), dtype=torch.float32, device=co.device)
+    mask[0, 0] = 0.0
+    cm = co * mask
+    t = cm.reshape(3, tby, COLOR_TILE_BLOCKS, tbx, COLOR_TILE_BLOCKS, 64)
+    ys = t[1]
+    denom = (ys * ys).sum(dim=(1, 3, 4)) + 1e-9
+    rx = (t[0] * ys).sum(dim=(1, 3, 4)) / denom
+    rb = (t[2] * ys).sum(dim=(1, 3, 4)) / denom
+    ytox = torch.clamp(torch.round(rx * color_factor), -128, 127)
+    ytob = torch.clamp(torch.round((rb - base_b) * color_factor), -128, 127)
+    return ytox.to(torch.int32), ytob.to(torch.int32)
+
+
+def encode_step(rgb, dm_inv, dm, gab_kernel, inv_global_scale, base_quant,
+                x_dm_mult, b_dm_mult, quant_max=255, color_factor=84.0,
+                adaptive=True, cfl=True, qf_in=None, distance=None):
+    """The device VarDCT encode step (ComputeCoefficients and the
+    LossyFrameHeuristics subset): linear RGB f32[3, H, W], H and W
+    multiples of 8 -> (q i32[3, nby, nbx, 8, 8], dc, qf, ytox, ytob,
+    sharp). dm_inv, dm: f32[3, 8, 8]; the scalars are f32 values. DC is
+    the unquantized f32[3, nby, nbx] DCT DC (the host quantizes it)."""
+    xyb = rgb_to_xyb(rgb)
+    if qf_in is None and adaptive and distance is not None:
+        # the full AdaptiveQuantizationMap on the PRE-sharpening opsin
+        # image (enc_heuristics.cc:1105); the host fixes only the global
+        # scale (the 0.39/d anchor)
+        _, h, w = xyb.shape
+        field = adaptive_quant_field(xyb, h // 8, w // 8, distance)
+        qf_in = torch.clamp(field * float(inv_global_scale) + 0.5, 1,
+                            quant_max).to(torch.int32)
+    if gab_kernel is not None:
+        xyb = gaborish_inverse(xyb, gab_kernel)
+    return encode_step_xyb(xyb, dm_inv, dm, inv_global_scale, base_quant,
+                           x_dm_mult, b_dm_mult, quant_max, color_factor,
+                           adaptive, cfl, qf_in)
+
+
+def encode_step_xyb(xyb, dm_inv, dm, inv_global_scale, base_quant,
+                    x_dm_mult, b_dm_mult, quant_max=255, color_factor=84.0,
+                    adaptive=True, cfl=True, qf_in=None):
+    """encode_step from the (already sharpened) XYB image: the streaming
+    encoder's per-DC-group step, whose inverse-Gaborish border context
+    comes from the neighbouring chunks."""
+    from ..vardct.frame import _deadzone_thresholds
+
+    dev = xyb.device
+    _, h, w = xyb.shape
+    nby, nbx = h // 8, w // 8
+    if qf_in is not None:
+        # a precomputed raw quant field; the sharpness stays uniform
+        qf = qf_in
+        _, sharp = quant_field(xyb[1], nby, nbx, base_quant, quant_max)
+    elif adaptive:
+        qf, sharp = quant_field(xyb[1], nby, nbx, base_quant, quant_max)
+    else:
+        qf = torch.full((nby, nbx), int(np.float32(base_quant)),
+                        dtype=torch.int32, device=dev)
+        sharp = torch.full((nby, nbx), 4, dtype=torch.int32, device=dev)
+    co = dct8_blocks(image_to_blocks(xyb))
+    # CfL tile fit on the tile grid, padded with zero blocks
+    tby = -(-nby // COLOR_TILE_BLOCKS)
+    tbx = -(-nbx // COLOR_TILE_BLOCKS)
+    if cfl:
+        co_p = torch.nn.functional.pad(
+            co, (0, 0, 0, 0, 0, tbx * COLOR_TILE_BLOCKS - nbx,
+                 0, tby * COLOR_TILE_BLOCKS - nby))
+        ytox_map, ytob_map = fit_cfl(co_p, color_factor)
+    else:
+        ytox_map = torch.zeros((tby, tbx), dtype=torch.int32, device=dev)
+        ytob_map = torch.zeros((tby, tbx), dtype=torch.int32, device=dev)
+    scaled = (float(inv_global_scale)
+              / qf.to(torch.float32))[:, :, None, None]
+    x_cc = (0.0 + _tile_to_blocks(ytox_map, nby, nbx).to(torch.float32)
+            / color_factor)[:, :, None, None]
+    b_cc = (1.0 + _tile_to_blocks(ytob_map, nby, nbx).to(torch.float32)
+            / color_factor)[:, :, None, None]
+
+    def dz(vals, c):
+        # dead-zone thresholds (QuantizeBlockAC, enc_group.cc:46-91)
+        thr = torch.as_tensor(_deadzone_thresholds(1, 1, c),
+                              dtype=torch.float32, device=dev)
+        return torch.where(vals.abs() < thr, 0.0, torch.round(vals))
+
+    dm_inv = torch.as_tensor(dm_inv, dtype=torch.float32, device=dev)
+    dm = torch.as_tensor(dm, dtype=torch.float32, device=dev)
+    qy = dz(co[1] * dm_inv[1] / scaled, 1)
+    dy = adjust_quant_bias(qy, 1) * dm[1] * scaled
+    qx = dz((co[0] - x_cc * dy) * dm_inv[0]
+            / (scaled * float(x_dm_mult)), 0)
+    qb = dz((co[2] - b_cc * dy) * dm_inv[2]
+            / (scaled * float(b_dm_mult)), 2)
+    q = torch.stack([qx, qy, qb]).to(torch.int32)
+    q[:, :, :, 0, 0] = 0
+    dc = co[:, :, :, 0, 0]
+    return q, dc, qf, ytox_map, ytob_map, sharp

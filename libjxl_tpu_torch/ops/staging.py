@@ -1,0 +1,67 @@
+"""How a frame's host state is staged for the device renders and the
+encode step: the per-frame tables as numpy arrays, scalars rounded to
+f32, and the upload of whatever holds them.
+
+api/tpu_codec (the batch, single-image and encode paths),
+vardct/low_memory (the device strips) and vardct/streaming (the chunk
+step) all stage through these, so the three paths hand the device the
+same tensors.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ..render.pipeline import _sad_mul_map, compute_sigma, gaborish_kernel
+
+
+def dequant_tables(st):
+    """The DCT8 dequant matrices f32[3, 64] of a frame's state."""
+    return np.stack([st.matrices.dequant_matrix(0, c)
+                     for c in range(3)]).astype(np.float32)
+
+
+def gab_kernels(lf):
+    """The Gaborish kernels f32[3, 3, 3] of a frame's loop filter; None
+    without Gaborish."""
+    if not lf.gab:
+        return None
+    return np.stack([gaborish_kernel(getattr(lf, f"gab_{ch}_weight1"),
+                                     getattr(lf, f"gab_{ch}_weight2"))
+                     for ch in "xyb"]).astype(np.float32)
+
+
+def block_sigma(state, lf):
+    """The EPF inverse sigma per BLOCK, f32[nby, nbx] (64x less to upload
+    than per pixel; the kernel reads it per block); zeros without EPF."""
+    if lf.epf_iters > 0:
+        return compute_sigma(lf, state.quantizer.global_scale_float,
+                             state.raw_quant_field,
+                             state.epf_sharpness).astype(np.float32)
+    return np.zeros((state.fd.ysize_blocks, state.fd.xsize_blocks),
+                    dtype=np.float32)
+
+
+def sad_mul(lf, h, w):
+    """The EPF SAD multiplier map f32[h, w] (ones without EPF)."""
+    if lf.epf_iters > 0:
+        return _sad_mul_map(h, w, lf.epf_border_sad_mul).astype(np.float32)
+    return np.ones((h, w), dtype=np.float32)
+
+
+def f32(v) -> float:
+    """A host scalar rounded to f32, as the JAX path hands it over."""
+    return float(np.float32(v))
+
+
+def to_device(obj, dev):
+    """`obj` with every numpy array in it, inside tuples, lists and dicts,
+    as a contiguous tensor on dev."""
+    if isinstance(obj, np.ndarray):
+        return torch.from_numpy(np.ascontiguousarray(obj)).to(dev)
+    if isinstance(obj, (tuple, list)):
+        return type(obj)(to_device(o, dev) for o in obj)
+    if isinstance(obj, dict):
+        return {k: to_device(v, dev) for k, v in obj.items()}
+    return obj

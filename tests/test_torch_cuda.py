@@ -160,7 +160,7 @@ def test_decode_batch_on_card_matches_cpu(cuda):
     rng = np.random.default_rng(18)
     streams = [codestream.encode_lossy(
         np.clip(rng.normal(120, 30, (100, 132, 3)), 0, 255).astype(np.uint8),
-        distance=1.0, effort=3) for _ in range(2)]
+        distance=1.0, effort=3, device=None) for _ in range(2)]
     before = launch_counts()
     got = tpu_codec.decode_batch(streams, cuda)
     after = launch_counts()
@@ -310,7 +310,8 @@ def _entropy_streams(n, seed):
                + rng.normal(0, 3, (256, 512)))
         rgb = np.stack([img, img * 0.92 + 8, img * 1.05 - 9], axis=-1)
         out.append(codestream.encode_lossy(
-            np.clip(rgb, 0, 255).astype(np.uint8), distance=4.0, effort=3))
+            np.clip(rgb, 0, 255).astype(np.uint8), distance=4.0, effort=3,
+            device=None))
     return out
 
 
@@ -327,7 +328,8 @@ def _d4_lane_plan():
                + rng.normal(0, 3.0, (512, 512)))
         rgb = np.stack([img, img * 0.92 + 8, img * 1.05 - 9], axis=-1)
         datas.append(codestream.encode_lossy(
-            np.clip(rgb, 0, 255).astype(np.uint8), distance=4.0, effort=3))
+            np.clip(rgb, 0, 255).astype(np.uint8), distance=4.0, effort=3,
+            device=None))
     return tpu_codec.prepare_batch_entropy(datas)[2]
 
 
@@ -481,3 +483,81 @@ def test_glue_kernel_matches_twin(cuda):
     assert ok.all() and rok.all()
     assert torch.equal(tape, rtape)
     assert (tape[int(steps.max()):] == 0).all()
+
+
+def _encode_arrays(img, device):
+    """encode_lossy_tpu's bytes and its step's arrays as read back."""
+    from libjxl_tpu_torch.api import tpu_codec
+
+    got = {}
+
+    def mark(stage, value):
+        if stage == "readback":
+            got["arrays"] = value
+
+    data = tpu_codec.encode_lossy_tpu(img, device=device, mark=mark)
+    return data, got["arrays"]
+
+
+@pytest.mark.cuda
+def test_encode_on_card_matches_cpu(cuda):
+    """encode_lossy's device route on the card: no kernel launch (the
+    encode step is torch ops), the step's arrays as on the CPU except
+    integers one step off at a rounding boundary (fewer than 1 in 10,000)
+    and floats within 1e-5, and the stream decodes within one u8 step of
+    its host decode."""
+    from libjxl_tpu_torch.api import codestream
+
+    img = _photo(256, 320, 12)
+    (data, card), n = _launched(_encode_arrays, img, cuda)
+    assert n == {}
+    _, cpu = _encode_arrays(img, "cpu")
+    for a, b in zip(card, cpu):
+        assert a.shape == b.shape and a.dtype == b.dtype
+        if a.dtype.kind == "f":
+            np.testing.assert_allclose(a, b, rtol=1e-5, atol=1e-5)
+        else:
+            d = np.abs(a.astype(np.int64) - b.astype(np.int64))
+            assert d.max() <= 1 and (d != 0).sum() <= max(1, a.size // 10000)
+    assert codestream.encode_lossy(img, effort=3, device=cuda) == data
+    got, _ = codestream.decode(data, device=cuda)
+    ref, _ = codestream.decode(data, device=None)
+    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+def test_streaming_on_card_is_the_same_for_any_hosts(cuda):
+    """encode_lossy_streaming on the card: hosts=1 and hosts=2 (threads
+    sharing the card) give equal bytes; no kernel launch."""
+    from libjxl_tpu_torch.api import codestream
+
+    img = _photo(300, 260, 13)
+    one, n = _launched(codestream.encode_lossy_streaming, img, device=cuda)
+    assert n == {}
+    assert codestream.encode_lossy_streaming(img, hosts=2,
+                                             device=cuda) == one
+    out, _ = codestream.decode(one, device=None)
+    assert np.abs(out.astype(int) - img.astype(int)).mean() < 6.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(600, 520), (257, 1030)])
+def test_decode_rows_on_card_matches_cpu(cuda, shape):
+    """decode_rows on the card: u8 strips, dequant_idct8 and render_tail
+    once a strip, the rows within one step of the CPU's strips (the
+    twins) and of the whole-image decode on the card."""
+    from libjxl_tpu_torch.api import codestream
+
+    data = codestream.encode_lossy(_photo(*shape, 14), distance=1.0,
+                                   effort=3, device=None)
+    rows, n = _launched(lambda: list(codestream.decode_rows(data,
+                                                            device=cuda)))
+    assert all(r.dtype == np.uint8 for _, r in rows)
+    assert n == {"dequant_idct8": len(rows), "render_tail": len(rows)}
+    got = np.concatenate([r for _, r in rows], axis=0)
+    cpu = np.concatenate([r for _, r in codestream.decode_rows(
+        data, device="cpu")], axis=0)
+    whole, _ = codestream.decode(data, device=cuda)
+    for ref in (cpu, whole):
+        assert got.shape == ref.shape
+        assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1

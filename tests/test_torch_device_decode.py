@@ -276,15 +276,22 @@ def test_staged_batches_equal_the_jax_staging():
 
 
 def test_cuda_device_without_a_card_raises():
-    """"cuda", the entries' default, raises without a card."""
+    """"cuda", the entries' default, raises without a card: the decodes,
+    encode_lossy at e3 (its device route), encode_lossy_streaming and
+    decode_rows."""
     if torch.cuda.is_available():
         pytest.skip("a card is present: the device path runs there")
     data = _STREAMS["epf3"]()
+    img = _photo(64, 72, 8)
     for call in (lambda: tcs.decode(data, device="cuda"),
                  lambda: tcs.decode(data),
                  lambda: next(tcs.decode_frames(data)),
                  lambda: tcs.decode_batch([data, data]),
                  lambda: tcs.decode_batch([]),
-                 lambda: ttc.decode(data)):
+                 lambda: ttc.decode(data),
+                 lambda: tcs.encode_lossy(img, distance=1.0, effort=3),
+                 lambda: ttc.encode_lossy_tpu(img),
+                 lambda: tcs.encode_lossy_streaming(img),
+                 lambda: next(tcs.decode_rows(data))):
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()

@@ -168,7 +168,8 @@ def test_encode_lossy_writes_the_jax_package_bytes(shape, seed, epf):
     img = _image(max(shape), seed)[:shape[0], :shape[1]]
     ref = jcs.encode_lossy(img, distance=1.0, effort=3, device=False,
                            epf=epf)
-    out = tcs.encode_lossy(img, distance=1.0, effort=3, epf=epf)
+    out = tcs.encode_lossy(img, distance=1.0, effort=3, epf=epf,
+                           device=None)
     assert out == ref
 
 
@@ -203,7 +204,8 @@ def _gated_streams():
     sigma[0] = 2.0
     spline = Spline(np.array([[20.0, 20.0], [40.0, 35.0], [70.0, 60.0]]),
                     color, sigma)
-    return {"icc": tcs.encode_lossy(img, distance=1.0, effort=3, icc=icc),
+    return {"icc": tcs.encode_lossy(img, distance=1.0, effort=3, icc=icc,
+                                    device=None),
             "splines": tcs.encode_lossy(img, distance=1.0,
                                         splines=[spline])}
 
@@ -241,7 +243,8 @@ def test_decode_batch_entropy_falls_back_to_host_entropy():
     falls back to the host-entropy batch, which decodes it."""
     from libjxl_tpu_torch.api import tpu_codec as ttc
 
-    data = tcs.encode_lossy(_image(64, 24), distance=1.0, effort=3)
+    data = tcs.encode_lossy(_image(64, 24), distance=1.0, effort=3,
+                            device=None)
     imgs, info = ttc.decode_batch_entropy([data], "cpu")
     assert info == {"path": "host_entropy",
                     "fallback": "batch decode: no raw AC capture"}
