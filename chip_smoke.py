@@ -76,7 +76,23 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    the per-strip split by CUDA events, MP/s and peak device memory beside
    the whole-image decode's), and an e5 stream, outside the strips'
    device scope, through the host strips with no launch;
-10. holds every probe kernel (the TPU gather probes S1-S7,
+10. drives the encoder heuristics on the card, counted:
+   codestream.encode_lossy(..., device="cuda") of 2 photo-like 2048x2048
+   images at d1/e5 (the AC-strategy tile costs; no launch) and one at e7
+   (also the butteraugli refinement: render_tail once a round, 2 rounds),
+   and one 1024x1024 at e7; each e5 image and the 1024x1024 one beside
+   the host encode (device=None) of the same image (MP/s, bytes, size
+   ratio, strategy blocks that differ); each card stream decoded on the
+   card within 1 u8 step of the host decode; the split of one e5 and one
+   e7 encode (tile costs, refinement by CUDA events, the rest by host
+   clock); the first e5 search's tile costs on the card against the CPU
+   twin for every size of the e7 ladder (relative error, CUDA-event ms
+   beside the twin's and the host numpy's), and the search from either's
+   costs (blocks that differ); butteraugli_diffmap_torch on the card
+   against the CPU twin at 512x512, and at 2048x2048 its time, peak
+   device memory and torch operations; render_tail against its twin on
+   the e7 trial's own inputs;
+11. holds every probe kernel (the TPU gather probes S1-S7,
    libjxl_tpu_torch/probes) against its twin, exactly, then drives the
    probes with the counters reset just before: every S1-S5 form timed
    at its TPU probe's step count (ns per lane-step, the marginal cost
@@ -85,8 +101,8 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    on the first 16-stream batch (the stream-copy floor, ans_decode's
    cost a step and fixed cost, the tape fill, place's pieces).
 
-It prints the phase seconds, a JSON line of the encode, streaming and
-strip records, the rates (render-only, pipelined
+It prints the phase seconds, a JSON line of the encode, streaming,
+strip and heuristics records, the rates (render-only, pipelined
 end-to-end, host-entropy and device-entropy end-to-end MP/s, with the
 device-entropy stages) with the card's name, a line a probe form and the
 K3 split with the card's name and power limit, a JSON line of the kernels
@@ -222,7 +238,7 @@ def encode_and_reference(job):
                                          effort=3, device=None)
     elif kind == "e5":
         stream = codestream.encode_lossy(make_image(h, w, seed),
-                                         distance=1.0, effort=5)
+                                         distance=1.0, effort=5, device=None)
     elif kind == "ycbcr":
         return ycbcr_stream(h, w, seed), None
     else:
@@ -1434,6 +1450,377 @@ def drive_strips(img, e5_stream, odd_stream, dev, smi):
     return launches, rec
 
 
+
+# The encoder heuristics phase (drive_heuristics): 2048^2 d1 photos at e5
+# and e7 on the card beside the host encode; the host e7 reference is
+# taken at E7_HOST_SIDE (at 2048^2 it alone takes about as long as the
+# rest of the phase)
+HEUR_E5_SEEDS = (800, 801)
+HEUR_E7_SEED = 802
+E7_HOST_SIDE = 1024
+E7_ROUNDS = 2  # min(4, effort - 5) refinement rounds at e7
+DIFFMAP_CHECK_SIDE = 512
+# the card's diffmap against the CPU twin: relative, with a 1e-3 floor, at
+# tests/test_butteraugli_jax.py's device-vs-host bound (the blur products
+# sum in another order and the opsin X channel cancels, so an ulp there
+# moves the map by up to ~1e-4)
+DIFFMAP_REL = 2e-3
+TILE_RTOL = 1e-5  # tile costs, card against the CPU twin
+# e7 ladder: (rows, cols, strategy name) of every candidate transform
+LADDER = ((8, 8, "DCT"), (16, 16, "DCT16X16"), (16, 8, "DCT16X8"),
+          (8, 16, "DCT8X16"), (32, 32, "DCT32X32"), (32, 16, "DCT32X16"),
+          (16, 32, "DCT16X32"), (64, 64, "DCT64X64"), (64, 32, "DCT64X32"),
+          (32, 64, "DCT32X64"), (128, 128, "DCT128X128"),
+          (128, 64, "DCT128X64"), (64, 128, "DCT64X128"),
+          (256, 256, "DCT256X256"), (256, 128, "DCT256X128"),
+          (128, 256, "DCT128X256"))
+
+
+def torch_ops(fn):
+    """fn() and the number of torch operations it dispatched, views
+    excluded: each of those is about one launch on the card."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+class HeuristicsSpy:
+    """Wraps the encode's device stages while installed: the CUDA-event
+    time of every _tile_cost_device call and _refine_device call, a
+    snapshot of the first AC-strategy search's inputs, and render_tail's
+    first call's arguments (the trial's own inputs)."""
+
+    def __init__(self):
+        from libjxl_tpu_torch.ops import kernels
+        from libjxl_tpu_torch.vardct import frame, heuristics
+
+        self.targets = ((frame, "_tile_cost_device", "acs costs"),
+                        (heuristics, "_refine_device", "refinement"),
+                        (frame, "_choose_ac_strategies", None),
+                        (kernels, "render_tail", None))
+        self.real = {name: getattr(mod, name)
+                     for mod, name, _ in self.targets}
+        self.events = []
+        self.acs_inputs = None
+        self.tail_args = None
+
+    def _timed(self, name, stage):
+        import torch
+
+        real = self.real[name]
+
+        def wrapped(*args, **kw):
+            a = torch.cuda.Event(enable_timing=True)
+            b = torch.cuda.Event(enable_timing=True)
+            a.record()
+            out = real(*args, **kw)
+            b.record()
+            self.events.append((stage, a, b))
+            return out
+
+        return wrapped
+
+    def _search(self, state, xyb, *args, **kw):
+        if self.acs_inputs is None:
+            self.acs_inputs = (self.snapshot(state), xyb.copy(), args, kw)
+        return self.real["_choose_ac_strategies"](state, xyb, *args, **kw)
+
+    def _tail(self, *args, **kw):
+        if self.tail_args is None:
+            self.tail_args = ([a.clone() if hasattr(a, "clone") else a
+                               for a in args], dict(kw))
+        return self.real["render_tail"](*args, **kw)
+
+    @staticmethod
+    def snapshot(state):
+        """A copy of an encoder state that an AC-strategy search may
+        change without touching `state` (the arrays it writes copied)."""
+        import copy
+
+        snap = copy.copy(state)
+        for name in ("raw_quant_field", "strategy", "is_origin"):
+            setattr(snap, name, getattr(state, name).copy())
+        snap.__dict__.pop("_xyb_dev", None)
+        return snap
+
+    def __enter__(self):
+        for mod, name, stage in self.targets:
+            wrapper = self._timed(name, stage) if stage \
+                else {"_choose_ac_strategies": self._search,
+                      "render_tail": self._tail}[name]
+            setattr(mod, name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        for mod, name, _ in self.targets:
+            setattr(mod, name, self.real[name])
+
+    def split(self):
+        """{stage: CUDA-event ms} of the calls since the last split."""
+        import torch
+
+        torch.cuda.synchronize()
+        out = {}
+        for stage, a, b in self.events:
+            out[stage] = out.get(stage, 0.0) + a.elapsed_time(b)
+        self.events = []
+        return out
+
+
+def encode_timed(img, effort, device, spy=None):
+    """codestream.encode_lossy(img, d1, effort, device), the launch
+    counters set to 0 just before: (stream, host seconds, the strategy of
+    every block, the launches it made, the split of the device stages when
+    a spy is installed)."""
+    import torch
+
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+
+    got = {}
+    if spy is not None:
+        spy.split()
+    reset_launch_counts()
+    t = time.perf_counter()
+    data = codestream.encode_lossy(
+        img, distance=1.0, effort=effort, device=device,
+        debug_cb=lambda st: got.update(strategy=st.strategy.copy()))
+    if device is not None:
+        torch.cuda.synchronize()
+    secs = time.perf_counter() - t
+    n = nonzero_counts()
+    split = spy.split() if spy is not None else {}
+    if split:
+        split["rest (host clock)"] = secs * 1e3 - sum(split.values())
+    return data, secs, got["strategy"], n, split
+
+
+def check_tile_costs(acs_inputs, dev):
+    """The card's _tile_cost_device against its CPU twin on one search's
+    own inputs, every tile size of the e7 ladder: the largest relative
+    difference, the tiles off by more than TILE_RTOL (at most one in 1,000
+    a size: a coefficient whose float sits on a rounding boundary moves
+    its tile's bits), the card's CUDA-event ms beside the CPU twin's and
+    the host numpy _batched_tile_cost's host-clock ms; then the whole
+    search run from the card's costs and from the twin's (the arrays just
+    computed), and the blocks whose strategy differs. Returns the
+    record."""
+    import torch
+
+    from libjxl_tpu_torch.vardct import ac_strategy as acs
+    from libjxl_tpu_torch.vardct import frame
+
+    state, xyb, args, kw = acs_inputs
+    cpu = torch.device("cpu")
+    nby, nbx = state.fd.ysize_blocks, state.fd.xsize_blocks
+    sizes, costs = {}, ({}, {})
+    for rows, cols, name in LADDER:
+        kind = acs.QUANT_TABLE[getattr(acs, name)]
+        tby, tbx = nby // (rows // 8), nbx // (cols // 8)
+        a = (HeuristicsSpy.snapshot(state), xyb, rows, cols, kind, tby, tbx)
+        card = frame._tile_cost_device(*a, dev)
+        t = time.perf_counter()
+        twin = frame._tile_cost_device(*a, cpu)
+        twin_ms = (time.perf_counter() - t) * 1e3
+        t = time.perf_counter()
+        host = frame._batched_tile_cost(*a[:5])
+        host_ms = (time.perf_counter() - t) * 1e3
+        costs[0][rows, cols], costs[1][rows, cols] = card, twin
+        rel = np.abs(card - twin) / np.abs(twin)
+        off = int((rel > TILE_RTOL).sum())
+        check(card.shape == twin.shape == host.shape and np.isfinite(
+            card).all() and off <= max(1, card.size // 1000),
+            f"tile cost {rows}x{cols}: {off} of {card.size} tiles off the "
+            f"CPU twin by more than {TILE_RTOL} (max {rel.max():.3g})")
+        sizes[f"{rows}x{cols}"] = {
+            "tiles": int(card.size), "max_rel": float(rel.max()),
+            "off": off, "host_max_rel": float(
+                (np.abs(card - host) / np.abs(host)).max()),
+            "ms": cuda_ms(lambda: frame._tile_cost_device(*a, dev), 3),
+            "twin_ms": twin_ms, "host_ms": host_ms}
+    strategies = []
+    real = frame._batched_tile_cost
+    try:
+        for side in costs:
+            frame._batched_tile_cost = \
+                lambda _st, _x, rows, cols, *_, side=side: side[rows, cols]
+            st = HeuristicsSpy.snapshot(state)
+            frame._choose_ac_strategies(st, xyb, *args, **kw)
+            strategies.append(st.strategy)
+    finally:
+        frame._batched_tile_cost = real
+    differ = int((strategies[0] != strategies[1]).sum())
+    return {"image": f"{nbx * 8}x{nby * 8}", "sizes": sizes,
+            "strategy_blocks_differ": differ, "blocks": int(nby * nbx)}
+
+
+def check_diffmap(dev):
+    """butteraugli_diffmap_torch on the card against the CPU twin at
+    DIFFMAP_CHECK_SIDE^2 (a photo against itself plus noise), then at
+    SIZE^2 its CUDA-event ms, peak device memory and torch operations."""
+    import torch
+
+    from libjxl_tpu_torch.metrics.butteraugli_torch import (
+        butteraugli_diffmap_torch)
+    from libjxl_tpu_torch.ops.xyb import srgb_u8_to_linear
+
+    def pair(n, seed):
+        lin = np.moveaxis(srgb_u8_to_linear(make_image(n, n, seed)), -1, 0)
+        rng = np.random.default_rng(seed)
+        other = np.clip(lin + rng.normal(0, 0.01, lin.shape), 0, 1)
+        return (torch.from_numpy(np.ascontiguousarray(lin, np.float32)),
+                torch.from_numpy(np.ascontiguousarray(other, np.float32)))
+
+    a, b = pair(DIFFMAP_CHECK_SIDE, 810)
+    twin = butteraugli_diffmap_torch(a, b)
+    card = butteraugli_diffmap_torch(a.to(dev), b.to(dev)).cpu()
+    rel = float(((card - twin).abs() / (twin.abs() + 1e-3)).max())
+    check(card.shape == twin.shape and bool(torch.isfinite(card).all())
+          and rel <= DIFFMAP_REL, f"diffmap on the card vs the CPU twin at "
+          f"{DIFFMAP_CHECK_SIDE}^2: max relative difference {rel}")
+    a, b = (t.to(dev) for t in pair(SIZE, 811))
+    ms = cuda_ms(lambda: butteraugli_diffmap_torch(a, b), 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    dm, ops = torch_ops(lambda: butteraugli_diffmap_torch(a, b))
+    torch.cuda.synchronize()
+    return {"check_side": DIFFMAP_CHECK_SIDE, "max_rel": rel,
+            "score_card": float(card.max()), "score_twin": float(
+                twin.max()), "side": SIZE, "ms": ms, "torch_ops": ops,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "score": float(dm.max())}
+
+
+def check_trial_tail(tail_args):
+    """render_tail on the e7 trial's own inputs (its first round's call,
+    out="xyb") against render_tail_plain at tail_tol, timed beside it."""
+    import torch
+
+    from libjxl_tpu_torch.ops import kernels, pipeline
+
+    args, kw = tail_args
+    xyb, gab, isg, sad = args[:4]
+    epf = args[5]
+    got = kernels.render_tail(*args, **kw)
+    ref = pipeline.render_tail_plain(*args, **kw)
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    check(kw.get("out") == "xyb" and torch.allclose(got, ref,
+                                                    **tail_tol(epf)),
+          f"render_tail on the e7 trial's inputs disagrees with "
+          f"render_tail_plain: max abs err {err}")
+    return {"shape": list(xyb.shape), "epf_iters": epf, "max_abs_err": err,
+            "ms": cuda_ms(lambda: kernels.render_tail(*args, **kw), 10),
+            "plain_ms": cuda_ms(lambda: pipeline.render_tail_plain(
+                *args, **kw), 3),
+            **bound(*tail_work(xyb[None], isg, sad, gab,
+                               pipeline.EPF_CHAINS[epf], "xyb"))}
+
+
+def drive_heuristics(dev, smi):
+    """The encoder heuristics on the card (the AC-strategy tile costs at
+    e >= 4, the e7 refinement's trial through render_tail and its
+    diffmap): codestream.encode_lossy(..., device=dev) of 2 x SIZE^2 d1
+    photos at e5 and one at e7, each counted (no launch at e5,
+    render_tail once a refinement round at e7), the e5 ones beside the
+    host encode (device=None) of the same image, the e7 one beside it at
+    E7_HOST_SIDE^2; the strategy blocks that differ from the host
+    encode's; each card stream decoded by the host and on the card
+    (within 1 u8 step); the split of one e5 and one e7 encode; the tile
+    costs (check_tile_costs), the diffmap (check_diffmap) and the trial's
+    render_tail (check_trial_tail) against their CPU twins. Returns (the
+    trial's render_tail record, the phase's record)."""
+    from libjxl_tpu_torch.api import codestream
+
+    codestream.encode_lossy(make_image(256, 256, 809), effort=7,
+                            device=dev)  # first torch calls on the card
+    runs = []
+    with HeuristicsSpy() as spy:
+        jobs = [(SIZE, seed, 5) for seed in HEUR_E5_SEEDS] \
+            + [(SIZE, HEUR_E7_SEED, 7), (E7_HOST_SIDE, HEUR_E7_SEED, 7)]
+        for side, seed, effort in jobs:
+            img = make_image(side, side, seed)
+            data, secs, strat, n, split = encode_timed(img, effort, dev, spy)
+            want = {"render_tail": E7_ROUNDS} if effort >= 7 else {}
+            check(n == want, f"e{effort} {side}^2 encode on the card "
+                  f"launched {n}, not {want}")
+            runs.append({"image": f"{side}^2 d1/e{effort}", "effort": effort,
+                         "bytes": len(data), "device_s": secs,
+                         "launches": n, "split_ms": split, "img": img,
+                         "data": data, "strategy": strat})
+        acs_inputs, tail_args = spy.acs_inputs, spy.tail_args
+    for run in runs:
+        img = run.pop("img")
+        data, strat = run.pop("data"), run.pop("strategy")
+        out = codestream.decode(data, device=dev)[0]
+        near_host(out, codestream.decode(data, device=None)[0],
+                  f"{run['image']} card stream: decode(device) vs host")
+        err = float(np.abs(out.astype(int) - img.astype(int)).mean())
+        check(err < 8.0, f"{run['image']} card stream: mean abs error {err}")
+        run["mean_abs_err"] = err
+        if run["image"] == f"{SIZE}^2 d1/e7":
+            continue
+        host, secs, host_strat, _, _ = encode_timed(img, run["effort"], None)
+        side = img.shape[0]
+        run.update({"host_bytes": len(host), "host_s": secs,
+                    "size_ratio": run["bytes"] / len(host),
+                    "bytes_equal": host == data,
+                    "strategy_blocks_differ": int((strat != host_strat)
+                                                  .sum()),
+                    "blocks": int(strat.size),
+                    "device_mp_s": mp_s(side * side, run["device_s"]),
+                    "host_mp_s": mp_s(side * side, secs)})
+    tiles = check_tile_costs(acs_inputs, dev)
+    diffmap = check_diffmap(dev)
+    trial = {"launches": runs[2]["launches"]["render_tail"],
+             **check_trial_tail(tail_args)}
+    rec = {"encodes": runs, "tile_cost": tiles, "diffmap": diffmap,
+           "trial_render_tail": trial}
+    for run in runs:
+        log(f"heuristics encode {run['image']}: card {run['bytes']} B in "
+            f"{run['device_s']:.3f} s"
+            + (f" ({run['device_mp_s']:.2f} MP/s) beside the host "
+               f"{run['host_bytes']} B in {run['host_s']:.3f} s "
+               f"({run['host_mp_s']:.2f} MP/s), size ratio "
+               f"{run['size_ratio']:.5f}, bytes "
+               f"{'equal' if run['bytes_equal'] else 'differ'}, "
+               f"{run['strategy_blocks_differ']} of {run['blocks']} "
+               "strategy blocks differ" if "host_s" in run else "")
+            + f"; launches {run['launches']}; split (ms) " + ", ".join(
+                f"{k} {v:.1f}" for k, v in run["split_ms"].items())
+            + f"; decoded mean abs error {run['mean_abs_err']:.3f}")
+    log(f"heuristics tile costs on {tiles['image']} (card vs CPU twin; card "
+        "ms by CUDA events, twin and host numpy by host clock): " + "; ".join(
+            f"{k} max rel {v['max_rel']:.2e} ({v['off']} of {v['tiles']} "
+            f"tiles off), {v['ms']:.3f} ms vs twin {v['twin_ms']:.1f} ms, "
+            f"host {v['host_ms']:.1f} ms"
+            for k, v in tiles["sizes"].items())
+        + f"; the search from the card's costs and the twin's: "
+        f"{tiles['strategy_blocks_differ']} of {tiles['blocks']} strategy "
+        "blocks differ")
+    log(f"heuristics diffmap: card vs CPU twin at {DIFFMAP_CHECK_SIDE}^2 max "
+        f"rel {diffmap['max_rel']:.2e} (bound {DIFFMAP_REL}); at {SIZE}^2 "
+        f"{diffmap['ms']:.3f} ms (CUDA events), peak device memory "
+        f"{diffmap['peak_gb']:.3f} GB, {diffmap['torch_ops']} torch "
+        "operations a diffmap")
+    log(f"heuristics trial render_tail ({trial['shape']}, epf "
+        f"{trial['epf_iters']}): max abs err {trial['max_abs_err']:.3g}, "
+        f"{trial['ms']:.4f} ms vs plain {trial['plain_ms']:.4f} ms, bound "
+        f"{trial['bound_ms']:.4f} ms ({trial['bound_by']}); launches "
+        f"{trial['launches']} over the e7 encode; {smi}")
+    return trial, rec
+
+
 def main():
     import torch
 
@@ -1625,6 +2012,12 @@ def main():
             "max_abs_err": paths["strips"]["twins"][name]["max_abs_err"]}
     log(f"phase encode + streaming + strips: "
         f"{time.perf_counter() - t:.2f} s")
+
+    # the encoder heuristics on the card (e5 tile costs, e7 refinement)
+    t = time.perf_counter()
+    records[1]["refine_trial"], paths["heuristics"] = drive_heuristics(
+        dev, smi)
+    log(f"phase encoder heuristics: {time.perf_counter() - t:.2f} s")
 
     # the TPU gather probes S1-S7 and the device-entropy profile
     t = time.perf_counter()

@@ -231,12 +231,19 @@ def encode_lossy(image: np.ndarray, distance: float = 1.0,
     photon_noise_iso: if set, signal synthetic photon noise (kNoise flag).
     icc: optional raw ICC profile to embed (signals want_icc; the pixel
     data is still XYB-coded, the profile describes the decode target).
-    device: at efforts <= 3 with none of the special features, the
-    compute path (XYB, inverse Gaborish, adaptive quant field, DCT, CfL,
-    quantization) runs as torch ops on this device
-    (tpu_codec.encode_lossy_tpu) and only the entropy coding on the host:
-    "cuda" by default (a missing card raises), "cpu" runs the same ops on
-    the CPU, None encodes on the host. Other encodes ignore it."""
+    device: where the encode's device stages run: "cuda" by default (a
+    missing card raises, base/device.resolve_device), "cpu" runs the same
+    torch ops on the CPU (the kernels' plain twins), None is the host
+    encode (the JAX package's device=False). At efforts <= 3 with none of
+    the special features the compute path (XYB, inverse Gaborish,
+    adaptive quant field, DCT, CfL, quantization) runs there
+    (tpu_codec.encode_lossy_tpu) and only the entropy coding on the host.
+    At effort >= 4 the AC-strategy tile costs run there, and at effort
+    >= 7 (or with `iterations`) the butteraugli quant refinement too: a
+    trial render through kernels.render_tail and the diffmap, each round;
+    a preview frame's strategy search runs there at any effort. A
+    featured encode at effort <= 3 without a preview runs wholly on the
+    host, whatever the device."""
     from ..io.frame_header import (
         FLAG_NOISE,
         FLAG_SKIP_ADAPTIVE_DC_SMOOTHING,
@@ -263,6 +270,15 @@ def encode_lossy(image: np.ndarray, distance: float = 1.0,
 
         return encode_lossy_tpu(image, distance=distance,
                                 gaborish=gaborish, epf=epf, device=device)
+    # the strategy search (e >= 4, and a preview frame's at any effort)
+    # and the butteraugli refinement (e >= 7, or `iterations`) run on the
+    # device; no other host encode needs it
+    if device is not None and (effort >= 4 or preview or iterations):
+        from ..base.device import resolve_device
+
+        device = resolve_device(device)
+    else:
+        device = None
     public_distance = distance
     distance = _calibrated_distance(distance)
     if image.ndim == 2:
@@ -393,7 +409,7 @@ def encode_lossy(image: np.ndarray, distance: float = 1.0,
         pfh.loop_filter.epf_iters = 0
         encode_vardct_frame(writer, pv_img, pfh,
                             distance=max(distance, 1.5),
-                            extra_channels=pv_extra)
+                            extra_channels=pv_extra, device=device)
         writer.zero_pad_to_byte()
     fh = FrameHeader(meta)
     fh.all_default = False
@@ -503,7 +519,7 @@ def encode_lossy(image: np.ndarray, distance: float = 1.0,
                         ctx_model=effort >= 6,
                         effort=effort,
                         dc_distance=public_distance,
-                        debug_cb=debug_cb)
+                        debug_cb=debug_cb, device=device)
     if stats is not None:
         from .stats import collect_stats
 
@@ -1276,7 +1292,7 @@ def decode_preview(data: bytes):
 def encode_with_patches(image: np.ndarray, patch_sheet: np.ndarray,
                         placements, distance: float = 1.0,
                         sheet_distance: float = None,
-                        blend_mode: int = None) -> bytes:
+                        blend_mode: int = None, device="cuda") -> bytes:
     """Encode with a patch dictionary (kPatches image feature).
 
     patch_sheet: (Hs, Ws, 3|4) uint8 image holding the patch contents; it
@@ -1289,6 +1305,9 @@ def encode_with_patches(image: np.ndarray, patch_sheet: np.ndarray,
     included). With a 4-channel sheet (or blend_mode kBlendAbove), the
     sheet is alpha-composited over `image` at decode time
     (PerformAlphaBlending, blending.cc:50-76): `image` is the background.
+    device: where both frames' AC-strategy tile costs run, as in
+    encode_lossy ("cuda" by default, raising without a card; "cpu"; None
+    on the host).
     """
     from ..io.frame_header import (
         CT_XYB,
@@ -1309,6 +1328,10 @@ def encode_with_patches(image: np.ndarray, patch_sheet: np.ndarray,
     )
     from ..vardct.frame import decode_vardct_frame, encode_vardct_frame
 
+    if device is not None:
+        from ..base.device import resolve_device
+
+        device = resolve_device(device)
     sheet_alpha = None
     if patch_sheet.ndim == 3 and patch_sheet.shape[2] == 4:
         sheet_alpha = patch_sheet[:, :, 3].astype(np.int32)
@@ -1356,7 +1379,7 @@ def encode_with_patches(image: np.ndarray, patch_sheet: np.ndarray,
     encode_vardct_frame(tmp, sheet_rgb, make_ref_header(),
                         distance=sheet_distance or min(distance, 1.0),
                         extra_channels=[sheet_alpha]
-                        if sheet_alpha is not None else None)
+                        if sheet_alpha is not None else None, device=device)
     ref_bytes = tmp.get_bytes()
     rr = BitReader(ref_bytes)
     fh2 = FrameHeader(meta)
@@ -1395,19 +1418,23 @@ def encode_with_patches(image: np.ndarray, patch_sheet: np.ndarray,
         main_extra = [np.full((h, w), 255, dtype=np.int32)]
     encode_vardct_frame(writer, rgb, fh, distance=distance, patches=st,
                         reference_frames=[xyb_sheet, None, None, None],
-                        extra_channels=main_extra)
+                        extra_channels=main_extra, device=device)
     return writer.get_bytes()
 
 
 # ------------------------------------------------------------------ animation
 def encode_animation(frames, fps_numerator: int = 10, fps_denominator: int = 1,
                      num_loops: int = 0, lossless: bool = True,
-                     distance: float = 1.0, durations=None) -> bytes:
+                     distance: float = 1.0, durations=None,
+                     device="cuda") -> bytes:
     """Encode a list of (H, W, C) uint8 frames as an animated codestream.
 
     Each frame is a kReplace full frame; durations (optional per-frame
     tick counts, default 1) are in 1/(fps_numerator/fps_denominator)
-    seconds (frame_header.cc AnimationFrame)."""
+    seconds (frame_header.cc AnimationFrame). device: where each lossy
+    frame's AC-strategy tile costs run, as in encode_lossy ("cuda" by
+    default, raising without a card; "cpu"; None on the host); a
+    lossless animation never uses it."""
     from ..io.frame_header import (
         CT_NONE,
         CT_XYB,
@@ -1420,6 +1447,12 @@ def encode_animation(frames, fps_numerator: int = 10, fps_denominator: int = 1,
     from ..ops.xyb import srgb_to_linear, srgb_u8_to_linear
     from ..vardct.frame import encode_vardct_frame
 
+    if device is not None and not lossless:
+        from ..base.device import resolve_device
+
+        device = resolve_device(device)
+    else:
+        device = None
     first = frames[0]
     if first.ndim == 2:
         frames = [f[:, :, None] for f in frames]
@@ -1463,7 +1496,8 @@ def encode_animation(frames, fps_numerator: int = 10, fps_denominator: int = 1,
             fh.loop_filter.epf_iters = 2
             rgb = np.moveaxis(srgb_to_linear(frame.astype(np.float64) / 255.0),
                               -1, 0)
-            encode_vardct_frame(writer, rgb, fh, distance=distance)
+            encode_vardct_frame(writer, rgb, fh, distance=distance,
+                                device=device)
         writer.zero_pad_to_byte()
     return writer.get_bytes()
 

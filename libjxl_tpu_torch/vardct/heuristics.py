@@ -94,7 +94,7 @@ def epf_sharpness_field(y: np.ndarray, nby: int, nbx: int) -> np.ndarray:
 
 
 def refine_quant_field(state, xyb_sharp: np.ndarray, xyb_orig: np.ndarray,
-                       distance: float, iters: int = 2) -> None:
+                       distance: float, iters: int = 2, device=None) -> None:
     """Butteraugli-feedback quant refinement (FindBestQuantization,
     enc_adaptive_quantization.cc:934, <= 4 iters at kitten+).
 
@@ -104,7 +104,11 @@ def refine_quant_field(state, xyb_sharp: np.ndarray, xyb_orig: np.ndarray,
     pre-sharpening original, and scale each block's raw quant value
     toward the target distance. Operates on state.raw_quant_field in
     place; runs before the AC-strategy search (the refined field feeds
-    both the search and the final coefficients)."""
+    both the search and the final coefficients).
+
+    device: a torch device runs each round's trial and diffmap there
+    (_refine_device) when both sides are at least 32 px; None, or a
+    smaller frame, runs the host loop."""
     from ..metrics.distance import butteraugli_diffmap_xyb
     from ..ops.dct import fwd_matrix, inv_matrix
     from ..render.pipeline import gaborish_kernel
@@ -139,6 +143,10 @@ def refine_quant_field(state, xyb_sharp: np.ndarray, xyb_orig: np.ndarray,
     # doc/encode_effort.md)
     target = max(distance, 0.05) * 1.4
     qf_float = state.raw_quant_field.astype(np.float64)
+    if device is not None and min(nby * 8, nbx * 8) >= 32:
+        _refine_device(state, co, dc, dm, dm_inv, inv_gs, gab, lf,
+                       xyb_orig, qf_float, target, iters, nby, nbx, device)
+        return
     for _ in range(iters):
         scaled = (inv_gs / np.maximum(np.round(qf_float), 1.0))[
             None, :, :, None, None]
@@ -198,6 +206,79 @@ def _refine_ratio(berr: np.ndarray, target: float) -> np.ndarray:
     r = (berr / target) ** 0.5
     ratio = np.clip(r, 1.0, 1.6)
     return np.where(berr < 0.4 * target, np.maximum(r, 0.8), ratio)
+
+
+def _trial(co, dc, qfr, dm, dm_inv, igs, i8, gab, inv_sigma, sad_mul,
+           channel_scale, pass0_sigma_scale, pass2_sigma_scale, epf_iters):
+    """The decoder's view of the DCT8 grid under the field qfr, on co's
+    device: quantize, dequantize, insert the DC, IDCT8 (the non-transposed
+    (u, v) layout of the host proxy's forward transform), then Gaborish
+    (gab f32[3, 3, 3], or None) and the EPF chain through
+    kernels.render_tail (inv_sigma per block), XYB -> linear RGB clipped
+    to [0, 1]. co f32[3, nby, nbx, 8, 8], dc f32[3, nby, nbx], qfr and
+    inv_sigma f32[nby, nbx], dm and dm_inv f32[3, 8, 8], igs a 0-d f32
+    tensor."""
+    import torch
+
+    from ..ops import kernels
+    from ..ops.pipeline import blocks_to_image, xyb_to_rgb
+
+    scaled = (igs / qfr)[None, :, :, None, None]
+    q = torch.round(co * dm_inv[:, None, None] / scaled)
+    rec = q * dm[:, None, None] * scaled
+    rec[:, :, :, 0, 0] = dc
+    pix = torch.einsum("ru,cnmuv,kv->cnmrk", i8, rec, i8)
+    img = blocks_to_image(pix).contiguous()
+    if gab is not None or epf_iters:
+        img = kernels.render_tail(img, gab, inv_sigma, sad_mul,
+                                  channel_scale, epf_iters,
+                                  pass0_sigma_scale, pass2_sigma_scale,
+                                  out="xyb")
+    return torch.clamp(xyb_to_rgb(img), 0.0, 1.0)
+
+
+def _refine_device(state, co, dc, dm, dm_inv, inv_gs, gab, lf, xyb_orig,
+                   qf_float, target, iters, nby, nbx, device):
+    """Torch body of refine_quant_field on `device`: each round's trial
+    (_trial, with one render_tail launch when the frame has Gaborish or
+    EPF) and butteraugli diffmap run there, and the per-block maxima come
+    back; only the field update (_refine_ratio) runs on the host."""
+    import torch
+
+    from ..metrics.butteraugli_torch import butteraugli_diffmap_torch
+    from ..ops.dct import inv_matrix
+    from ..ops.staging import f32, sad_mul, to_device
+    from ..ops.xyb import xyb_to_linear_rgb
+    from ..render.pipeline import compute_sigma
+
+    h, w = nby * 8, nbx * 8
+    epf_iters = int(lf.epf_iters)
+    co_t, dc_t, dm_t, dmi_t, i8, lin_orig = to_device(tuple(
+        a.astype(np.float32) for a in (
+            co, dc, dm, dm_inv, inv_matrix(8),
+            np.clip(xyb_to_linear_rgb(xyb_orig), 0.0, 1.0))), device)
+    gab_t = None if gab is None \
+        else to_device(np.stack(gab).astype(np.float32), device)
+    sad = to_device(sad_mul(lf, h, w), device) if epf_iters else None
+    cs = tuple(f32(v) for v in lf.epf_channel_scale)
+    igs = torch.tensor(np.float32(inv_gs), device=device)
+    for _ in range(iters):
+        qfr = np.maximum(np.round(qf_float), 1.0).astype(np.float32)
+        isg = None
+        if epf_iters:
+            isg = to_device(compute_sigma(
+                lf, state.quantizer.global_scale_float,
+                qfr.astype(np.int32), state.epf_sharpness).astype(
+                    np.float32), device)
+        lin = _trial(co_t, dc_t, to_device(qfr, device), dm_t, dmi_t, igs,
+                     i8, gab_t, isg, sad, cs, f32(lf.epf_pass0_sigma_scale),
+                     f32(lf.epf_pass2_sigma_scale), epf_iters)
+        dmap = butteraugli_diffmap_torch(lin, lin_orig)
+        berr = dmap.reshape(nby, 8, nbx, 8).amax(dim=(1, 3)).cpu().numpy()
+        qf_float = np.clip(qf_float * _refine_ratio(berr, target),
+                           1.0, QUANT_MAX)
+    state.raw_quant_field = np.clip(
+        np.round(qf_float), 1, QUANT_MAX).astype(np.int32)
 
 
 def _perceptual_diffmap(xyb_a: np.ndarray, xyb_b: np.ndarray) -> np.ndarray:

@@ -208,7 +208,7 @@ def test_decode_on_card_matches_cpu(cuda, shape, path):
     from libjxl_tpu_torch.api import codestream
 
     data = codestream.encode_lossy(_photo(*shape, 3), distance=1.0,
-                                   effort=5)
+                                   effort=5, device=None)
     info, cinfo = {}, {}
     (got, _), n = _launched(codestream.decode, data, device=cuda,
                             decode_info=info)
@@ -561,3 +561,58 @@ def test_decode_rows_on_card_matches_cpu(cuda, shape):
     for ref in (cpu, whole):
         assert got.shape == ref.shape
         assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("effort,rounds", [(5, 0), (7, 2)])
+def test_encode_heuristics_on_card_launch_render_tail_once_a_round(
+        cuda, effort, rounds):
+    """encode_lossy on the card at e5 (the tile costs) and e7 (with the
+    butteraugli refinement): render_tail once a refinement round, as the
+    trial's Gaborish + EPF, and nothing else; the stream decodes close to
+    the image."""
+    from libjxl_tpu_torch.api import codestream
+
+    img = _photo(192, 224, 15)
+    data, n = _launched(codestream.encode_lossy, img, distance=1.0,
+                        effort=effort, device=cuda)
+    assert n == ({"render_tail": rounds} if rounds else {})
+    out, _ = codestream.decode(data, device=None)
+    assert np.abs(out.astype(int) - img.astype(int)).mean() < 6.0
+
+
+@pytest.mark.cuda
+def test_heuristics_torch_forms_on_card_match_cpu(cuda):
+    """butteraugli_diffmap_torch and _tile_cost_device on the card against
+    the same functions on the CPU: the diffmap within 2e-3 relative (1e-3
+    floor; tests/test_butteraugli_jax.py's device-vs-host bound: the card
+    sums the blur products in another order and the opsin X channel
+    cancels), the costs within rtol 1e-5 but for at most one tile a size
+    (a coefficient on its rounding boundary moves its tile's bits)."""
+    from libjxl_tpu_torch.io.frame_header import FrameHeader
+    from libjxl_tpu_torch.io.headers import CodecMetadata, SizeHeader
+    from libjxl_tpu_torch.metrics.butteraugli_torch import (
+        butteraugli_diffmap_torch)
+    from libjxl_tpu_torch.vardct import ac_strategy as acs
+    from libjxl_tpu_torch.vardct.frame import VarDCTState, _tile_cost_device
+
+    rng = np.random.default_rng(16)
+    a = rng.uniform(0, 1, (3, 96, 136)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.01, a.shape), 0, 1).astype(np.float32)
+    got = butteraugli_diffmap_torch(_t(a).to(cuda), _t(b).to(cuda)).cpu()
+    ref = butteraugli_diffmap_torch(_t(a), _t(b))
+    assert float(((got - ref).abs() / (ref.abs() + 1e-3)).max()) <= 2e-3
+    meta = CodecMetadata()
+    meta.size = SizeHeader().set(136, 96)
+    fh = FrameHeader(meta)
+    state = VarDCTState(fh, fh.frame_dimensions())
+    state.quantizer.compute_global_scale_and_quant(1.0, 2.0)
+    state.raw_quant_field[:] = rng.integers(5, 40, state.raw_quant_field.shape)
+    xyb = rng.normal(0, 0.2, (3, 96, 136)).astype(np.float32)
+    for rows, cols, s in ((8, 8, acs.DCT), (32, 16, acs.DCT32X16),
+                          (64, 64, acs.DCT64X64)):
+        args = (xyb, rows, cols, acs.QUANT_TABLE[s], 96 // rows, 136 // cols)
+        got = _tile_cost_device(state, *args, cuda)
+        ref = _tile_cost_device(state, *args, torch.device("cpu"))
+        assert got.shape == ref.shape and np.isfinite(got).all()
+        assert (np.abs(got - ref) > 1e-5 * np.abs(ref)).sum() <= 1

@@ -405,11 +405,15 @@ GATED = {
 
 
 @pytest.mark.parametrize("case", sorted(GATED))
-def test_encode_lossy_outside_the_gate_is_the_host_encode(case):
+def test_encode_lossy_outside_the_gate_is_the_host_encode(case,
+                                                          monkeypatch):
     """Efforts above 3 and the special features take the host encode,
-    whatever the device (the default "cuda" too, here with no card: the
-    device is resolved only on the gated route), with the JAX package's
-    host bytes."""
+    with the JAX package's host bytes. A featured e3 encode runs no device
+    stage whatever the device (the default "cuda" too, here with no card:
+    the device is resolved only where a stage runs on it). At e4 and e5
+    the AC-strategy tile costs run on the device: device=None is the JAX
+    package's host encode, device="cpu" its device forms (its accelerator
+    probe patched to read True; tests/test_torch_heuristics.py)."""
     kw = dict(GATED[case])
     img = kw.pop("image", lambda a: a)(photo(72, 64, 17))
     if kw.get("icc") == "srgb":
@@ -419,6 +423,13 @@ def test_encode_lossy_outside_the_gate_is_the_host_encode(case):
             ((0.64, 0.33), (0.30, 0.60), (0.15, 0.06)), gamma=2.2)
     jkw = {k: ({} if k == "stats" else v) for k, v in kw.items()}
     ref = jcs.encode_lossy(img, distance=1.0, device=True, **jkw)
+    if kw["effort"] >= 4:
+        assert tcs.encode_lossy(img, distance=1.0, device=None, **kw) == ref
+        monkeypatch.setattr(jtc, "accelerator_available", lambda: True)
+        ref = jcs.encode_lossy(img, distance=1.0, device=True, **jkw)
+        assert tcs.encode_lossy(img, distance=1.0, device="cpu", **kw) \
+            == ref
+        return
     assert tcs.encode_lossy(img, distance=1.0, device="cpu", **kw) == ref
     kw = {k: ({} if k == "stats" else v) for k, v in kw.items()}
     assert tcs.encode_lossy(img, distance=1.0, **kw) == ref

@@ -176,10 +176,12 @@ def test_encode_lossy_writes_the_jax_package_bytes(shape, seed, epf):
 @pytest.mark.parametrize("effort", [5, 7])
 def test_encode_lossy_at_higher_efforts_writes_the_jax_package_bytes(effort):
     """The default effort (5: the learned modular DC tree, the AC
-    strategy search) and 7 (the butteraugli quant refinement)."""
+    strategy search) and 7 (the butteraugli quant refinement), both on the
+    host (device=None)."""
     img = _image(160, 21)[:, :136]
     ref = jcs.encode_lossy(img, distance=1.0, effort=effort, device=False)
-    assert tcs.encode_lossy(img, distance=1.0, effort=effort) == ref
+    assert tcs.encode_lossy(img, distance=1.0, effort=effort,
+                            device=None) == ref
 
 
 def test_encode_lossless_learned_tree_writes_the_jax_package_bytes():
@@ -207,7 +209,7 @@ def _gated_streams():
     return {"icc": tcs.encode_lossy(img, distance=1.0, effort=3, icc=icc,
                                     device=None),
             "splines": tcs.encode_lossy(img, distance=1.0,
-                                        splines=[spline])}
+                                        splines=[spline], device=None)}
 
 
 @pytest.mark.parametrize("kind", ["icc", "splines"])
