@@ -92,7 +92,22 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    against the CPU twin at 512x512, and at 2048x2048 its time, peak
    device memory and torch operations; render_tail against its twin on
    the e7 trial's own inputs;
-11. holds every probe kernel (the TPU gather probes S1-S7,
+11. drives the multi-device path (libjxl_tpu_torch/parallel) on a mesh
+   of 4 entries, the cards in turn (on one card a virtual mesh of
+   cuda:0, which it logs), each counted: tpu_codec.decode_batch_sharded
+   of the first 16-stream batch (equal to decode_pipelined's, one
+   dequant_idct8 and one render_tail a shard, host clock beside
+   decode_batch's); one 8192x8192 d1/e3 photo encoded on the card,
+   entropy-decoded on the host and rendered as 4 row bands by
+   sharding.build_sharded_decode_stream against the whole-image render
+   (equal; the gate is 1 step, under 1e-3 of the values), the whole
+   render and the band program on a 1-entry and on the 4-entry mesh
+   timed by CUDA events with their peak device memory, both kernels on
+   the second band's own inputs against their twins; the 4096x4096
+   streaming encode with the mesh (bytes equal to hosts=1's, no launch);
+   build_sharded_decode_full and build_sharded_encode on a (batch 2, rows
+   2) mesh at 2048x2048 against the unsharded forms on the card;
+12. holds every probe kernel (the TPU gather probes S1-S7,
    libjxl_tpu_torch/probes) against its twin, exactly, then drives the
    probes with the counters reset just before: every S1-S5 form timed
    at its TPU probe's step count (ns per lane-step, the marginal cost
@@ -102,7 +117,7 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    cost a step and fixed cost, the tape fill, place's pieces).
 
 It prints the phase seconds, a JSON line of the encode, streaming,
-strip and heuristics records, the rates (render-only, pipelined
+strip, heuristics and sharded records, the rates (render-only, pipelined
 end-to-end, host-entropy and device-entropy end-to-end MP/s, with the
 device-entropy stages) with the card's name, a line a probe form and the
 K3 split with the card's name and power limit, a JSON line of the kernels
@@ -1821,6 +1836,341 @@ def drive_heuristics(dev, smi):
     return trial, rec
 
 
+# The multi-device phase (drive_sharded): a mesh of SHARDS entries, the
+# cards in turn, so one card gives four entries of cuda:0 (a virtual mesh);
+# ONE big image strip-sharded over them, at the JAX dry run's default 64 MP
+SHARDS = 4
+SHARD_BIG = 8192
+SHARD_SEED = 900
+SHARD_LAUNCHES = {"dequant_idct8": SHARDS, "render_tail": SHARDS}
+
+
+class KernelSpy:
+    """While installed, kernels.dequant_idct8 and kernels.render_tail keep
+    the (args, kwargs) of their call number `keep` (from 0) in `calls`,
+    and launch as before: one shard's own inputs, to time its launches
+    and hold them to the twins afterwards."""
+
+    NAMES = ("dequant_idct8", "render_tail")
+
+    def __init__(self, keep):
+        self.keep, self.calls, self.seen, self.orig = keep, {}, {}, {}
+
+    def __enter__(self):
+        from libjxl_tpu_torch.ops import kernels
+
+        for name in self.NAMES:
+            fn = self.orig[name] = getattr(kernels, name)
+
+            def spy(*args, _name=name, _fn=fn, **kw):
+                i = self.seen.get(_name, 0)
+                self.seen[_name] = i + 1
+                if i == self.keep:
+                    self.calls[_name] = (args, kw)
+                return _fn(*args, **kw)
+
+            setattr(kernels, name, spy)
+        return self
+
+    def __exit__(self, *exc):
+        from libjxl_tpu_torch.ops import kernels
+
+        for name, fn in self.orig.items():
+            setattr(kernels, name, fn)
+
+
+def peak_gb(fn, devices):
+    """The device memory fn() allocates at its peak above what was
+    allocated before it, in GB, summed over the cards among `devices`."""
+    import torch
+
+    cards = sorted({d.index for d in devices})
+    base = {}
+    for i in cards:
+        torch.cuda.synchronize(i)
+        base[i] = torch.cuda.memory_allocated(i)
+        torch.cuda.reset_peak_memory_stats(i)
+    fn()
+    for i in cards:
+        torch.cuda.synchronize(i)
+    return sum(torch.cuda.max_memory_allocated(i) - base[i]
+               for i in cards) / 1e9
+
+
+def check_shard_kernels(spy):
+    """dequant_idct8 and render_tail on one shard's own inputs (`spy`'s
+    call) against their twins, timed beside them; the records' "sharded"
+    entries without launches."""
+    import torch
+
+    from libjxl_tpu_torch.ops import kernels, pipeline
+
+    k1_args, _ = spy.calls["dequant_idct8"]
+    got = kernels.dequant_idct8(*k1_args)
+    ref = pipeline.decode_xyb_image(*k1_args)
+    torch.cuda.synchronize()
+    k1_err = max_err(got, ref)
+    check(torch.allclose(got, ref, **K1_TOL), "a shard's dequant_idct8 "
+          f"disagrees with decode_xyb_image: max abs err {k1_err}")
+    del got, ref
+    q = k1_args[0]
+    k1 = {"shard": "x".join(map(str, q.shape[-2:][::-1])),
+          "max_abs_err": k1_err,
+          "ms_per_shard": cuda_ms(lambda: kernels.dequant_idct8(*k1_args),
+                                  10),
+          "plain_ms": cuda_ms(lambda: pipeline.decode_xyb_image(*k1_args),
+                              3),
+          **bound(tensor_bytes(*k1_args[:7]) + 4 * q.numel(),
+                  K1_OPS * q.numel())}
+
+    t_args, t_kw = spy.calls["render_tail"]
+    comp, gab, isg, sad, _, iters = t_args[:6]
+    got = kernels.render_tail(*t_args, out="xyb")
+    ref = pipeline.render_tail_plain(*t_args, out="xyb")
+    torch.cuda.synchronize()
+    k2_err = max_err(got, ref)
+    check(torch.allclose(got, ref, **tail_tol(iters)), "a shard's "
+          f"render_tail (XYB) disagrees with its twin: max abs err {k2_err}")
+    del got, ref
+    got = kernels.render_tail(*t_args, **t_kw)
+    ref = pipeline.render_tail_plain(*t_args, **t_kw)
+    torch.cuda.synchronize()
+    steps = int((got.int() - ref.int()).abs().max())
+    check(steps <= U8_BOUND, f"a shard's render_tail (u8) is {steps} steps "
+          "from its twin")
+    del got, ref
+    k2 = {"shard": "x".join(map(str, comp.shape[-2:][::-1])),
+          "max_abs_err": k2_err, "u8_max_steps": steps,
+          "ms_per_shard": cuda_ms(lambda: kernels.render_tail(*t_args,
+                                                              **t_kw), 10),
+          "plain_ms": cuda_ms(lambda: pipeline.render_tail_plain(*t_args,
+                                                                 **t_kw), 3),
+          **bound(*tail_work(comp[None], isg, sad, gab,
+                             pipeline.EPF_CHAINS[iters], t_kw["out"]))}
+    return {"dequant_idct8": k1, "render_tail": k2}
+
+
+def drive_builders(devices, dev):
+    """build_sharded_decode_full and build_sharded_encode on a (batch 2,
+    rows 2) mesh of `devices` at 2048^2, counted, against the unsharded
+    port forms on the card: dequant_idct8 + render_tail + xyb_to_rgb over
+    the whole batch (within tail_tol, likely equal), encode_coefficients
+    image by image (equal)."""
+    import torch
+
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+    from libjxl_tpu_torch.ops import kernels, pipeline
+    from libjxl_tpu_torch.ops.staging import to_device
+    from libjxl_tpu_torch.parallel import sharding
+    from libjxl_tpu_torch.render.pipeline import (_sad_mul_map,
+                                                  gaborish_kernel)
+    from libjxl_tpu_torch.vardct.quant_weights import DequantMatrices
+
+    mesh = sharding.make_mesh(devices, batch=2)
+    rng = np.random.default_rng(SHARD_SEED + 1)
+    b, h, w = 2, SIZE, SIZE
+    nby, nbx = h // 8, w // 8
+    m = DequantMatrices()
+    dm = np.stack([m.dequant_matrix(0, c) for c in range(3)]).astype(
+        np.float32)
+    dm_inv = np.stack([m.inv_matrix(0, c) for c in range(3)]).astype(
+        np.float32)
+    isg = rng.uniform(-2.5, -0.3, (b, nby, nbx)).astype(np.float32)
+    args = to_device((
+        (rng.integers(-3, 4, (b, 3, h, w))
+         * (rng.random((b, 3, h, w)) < 0.1)).astype(np.int32),
+        rng.integers(2, 30, (b, nby, nbx)).astype(np.int32),
+        rng.normal(0, 0.2, (b, 3, nby, nbx)).astype(np.float32),
+        rng.integers(-10, 10, (b, nby // 8, nbx // 8)).astype(np.int32),
+        rng.integers(-45, -30, (b, nby // 8, nbx // 8)).astype(np.int32),
+        dm, np.repeat(np.repeat(isg, 8, 1), 8, 2),
+        _sad_mul_map(h, w, 2.0 / 3.0).astype(np.float32)), dev)
+    full = sharding.build_sharded_decode_full(mesh, epf_iters=2)
+    reset_launch_counts()
+    got = full(*args)
+    torch.cuda.synchronize()
+    launches = nonzero_counts()
+    check(launches == SHARD_LAUNCHES, f"build_sharded_decode_full "
+          f"launches {launches}")
+    gab = to_device(np.stack([gaborish_kernel(*sharding.GAB_DEFAULT[c])
+                              for c in range(3)]).astype(np.float32), dev)
+
+    def unsharded():
+        xyb = kernels.dequant_idct8(*args[:6], torch.full(
+            (b,), 1024.0, device=dev), 1.0, 1.0)
+        return pipeline.xyb_to_rgb(kernels.render_tail(
+            xyb, gab, to_device(isg, dev), args[7],
+            sharding.FULL_CHANNEL_SCALE, 2, out="xyb"))
+
+    ref = unsharded()
+    torch.cuda.synchronize()
+    full_err = max_err(got, ref)
+    check(torch.allclose(got, ref, **tail_tol(2)), "build_sharded_decode_"
+          f"full disagrees with the unsharded forms: max abs err {full_err}")
+    rec = {"mesh": repr(mesh), "full": {
+        "launches": launches, "max_abs_err": full_err,
+        "equal": bool(torch.equal(got, ref)),
+        "ms": cuda_ms(lambda: full(*args), 3),
+        "unsharded_ms": cuda_ms(unsharded, 3)}}
+    del got, ref, args
+
+    rgb = pipeline.srgb2lin(torch.from_numpy(np.stack([
+        np.moveaxis(make_image(h, w, SHARD_SEED + 2 + i), -1, 0)
+        for i in range(b)]).astype(np.float32) / 255.0).to(dev))
+    qf = to_device(rng.integers(32, 96, (b, nby, nbx)).astype(np.int32), dev)
+    consts = to_device((dm_inv, dm[1], np.array([512.0, 64.0, 32.0],
+                                                dtype=np.float32)), dev)
+    enc = sharding.build_sharded_encode(mesh)
+    reset_launch_counts()
+    q, qdc = enc(rgb, qf, consts[0], consts[1], consts[2])
+    torch.cuda.synchronize()
+    check(nonzero_counts() == {}, "the sharded encode launched a kernel")
+    ref = [pipeline.encode_coefficients(rgb[i], qf[i], consts[0], consts[1],
+                                        1024.0, 1.0, 1.0, consts[2])
+           for i in range(b)]
+    differ = [int((q != torch.stack([r[0] for r in ref])).sum()),
+              int((qdc != torch.stack([r[1] for r in ref])).sum())]
+    check(differ == [0, 0], f"build_sharded_encode differs from "
+          f"encode_coefficients in {differ} (q, qdc) values")
+    rec["encode"] = {"differ": differ, "of": [q.numel(), qdc.numel()],
+                     "ms": cuda_ms(lambda: enc(rgb, qf, *consts), 3)}
+    return rec
+
+
+def drive_sharded(main16, piped16, big, big_bytes, dev, smi):
+    """The multi-device path on a mesh of SHARDS entries (the cards in
+    turn; on one card a virtual mesh of cuda:0), each driven with the
+    counters reset just before: tpu_codec.decode_batch_sharded of the 16
+    main 2048^2 streams (equal to decode_pipelined's, one dequant_idct8
+    and one render_tail a shard; host clock beside decode_batch's); ONE
+    SHARD_BIG^2 d1/e3 photo encoded on the card, entropy-decoded on the
+    host and rendered strip-sharded with build_sharded_decode_stream
+    over SHARDS row bands against the whole-image render (equal, or the
+    gate: 1 step, under 1e-3 of the values), the three timed by CUDA
+    events on device-resident inputs with their peak device memory, and
+    both kernels on the second band's own inputs against their twins;
+    the BIG^2 streaming encode with the mesh (bytes equal to hosts=1's,
+    no launch); drive_builders. Returns ({kernel: its "sharded" record},
+    the phase's record)."""
+    import torch
+
+    from libjxl_tpu_torch.api import codestream, tpu_codec
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+    from libjxl_tpu_torch.parallel import dryrun, sharding
+
+    devices = dryrun.mesh_devices(SHARDS, "cuda")
+    virtual = len(set(devices)) < len(devices)
+    mesh = sharding.make_mesh(devices)
+    log(f"phase sharded: {mesh!r}; " + (
+        "a VIRTUAL mesh (its entries repeat a card): its times measure the "
+        "shard bookkeeping and the extra launches, not scaling"
+        if virtual else f"{torch.cuda.device_count()} cards"))
+    rec = {"mesh": repr(mesh), "virtual": virtual,
+           "cards": torch.cuda.device_count()}
+
+    reset_launch_counts()
+    t = time.perf_counter()
+    outs = tpu_codec.decode_batch_sharded(main16, mesh)
+    serve_s = time.perf_counter() - t
+    launches = nonzero_counts()
+    check(launches == SHARD_LAUNCHES,
+          f"decode_batch_sharded launches {launches}")
+    t = time.perf_counter()
+    same = tpu_codec.decode_batch(main16, dev)
+    batch_s = time.perf_counter() - t
+    for a, b, c in zip(outs, piped16, same):
+        check(np.array_equal(a, b) and np.array_equal(a, c),
+              "decode_batch_sharded differs from decode_batch")
+    mp = len(main16) * SIZE * SIZE
+    rec["serving"] = {"launches": launches, "secs": serve_s,
+                      "mp_s": mp_s(mp, serve_s), "batch_secs": batch_s,
+                      "batch_mp_s": mp_s(mp, batch_s)}
+    log(f"phase sharded serving decode ({len(main16)} x {SIZE}^2 over "
+        f"{SHARDS} shards, host clock): {serve_s:.3f} s "
+        f"({mp_s(mp, serve_s):.2f} MP/s) beside decode_batch's "
+        f"{batch_s:.3f} s "
+        f"({mp_s(mp, batch_s):.2f} MP/s); equal to decode_pipelined's")
+
+    img = make_image(SHARD_BIG, SHARD_BIG, SHARD_SEED)
+    t = time.perf_counter()
+    stream = codestream.encode_lossy(img, distance=1.0, effort=3, device=dev)
+    enc_s = time.perf_counter() - t
+    del img
+    t = time.perf_counter()
+    sr = dryrun.StreamRender.of(stream, num_threads=os.cpu_count() or 1)
+    entropy_s = time.perf_counter() - t
+    sr = sr.on(dev)
+    whole = sr.single(dev)
+    run1 = sr.sharded(sharding.make_mesh(devices[:1]))
+    run = sr.sharded(mesh)
+    with KernelSpy(keep=1) as spy, torch.inference_mode():
+        reset_launch_counts()
+        got = run(*sr.args)
+        torch.cuda.synchronize()
+        launches = nonzero_counts()
+    check(launches == SHARD_LAUNCHES,
+          f"build_sharded_decode_stream launches {launches}")
+    got = got.permute(1, 2, 0)
+    equal = bool(torch.equal(got, whole))
+    steps, frac = dryrun.u8_steps(got.cpu().numpy(), whole.cpu().numpy(),
+                                  "the strip-sharded big image")
+    del got
+    with torch.inference_mode():
+        ms = {"whole": cuda_ms(lambda: sr.single(dev), 3),
+              "strips_1": cuda_ms(lambda: run1(*sr.args), 3),
+              f"strips_{SHARDS}": cuda_ms(lambda: run(*sr.args), 3)}
+        peak = {"whole": peak_gb(lambda: sr.single(dev), [dev]),
+                "strips_1": peak_gb(lambda: run1(*sr.args), devices[:1]),
+                f"strips_{SHARDS}": peak_gb(lambda: run(*sr.args),
+                                            devices)}
+    kernels = check_shard_kernels(spy)
+    del spy, sr, whole
+    rec["big"] = {"image": f"{SHARD_BIG}^2 d1/e3, device-encoded",
+                  "bands": SHARDS, "launches": launches, "equal": equal,
+                  "steps": steps, "fraction": frac, "encode_s": enc_s,
+                  "entropy_s": entropy_s, "ms": ms, "peak_gb": peak}
+    log(f"phase sharded big image ({rec['big']['image']}, {SHARDS} bands of "
+        f"{SHARD_BIG // SHARDS} rows): "
+        + ("equal to" if equal else f"{steps} step(s), {frac:.2e} of values "
+           "off") + " the whole-image render; render (CUDA events, "
+        "device-resident inputs): " + ", ".join(
+            f"{k} {v:.4f} ms ({peak[k]:.3f} GB peak above the inputs)"
+            for k, v in ms.items())
+        + f"; a band: " + ", ".join(
+            f"{k} {v['ms_per_shard']:.4f} ms (plain {v['plain_ms']:.4f}, "
+            f"bound {v['bound_ms']:.4f}, {v['shard']})"
+            for k, v in kernels.items())
+        + f"; encode {enc_s:.3f} s, host entropy {entropy_s:.3f} s; {smi}")
+
+    reset_launch_counts()
+    t = time.perf_counter()
+    data = codestream.encode_lossy_streaming(big, distance=1.0, mesh=mesh,
+                                             device=dev)
+    stream_s = time.perf_counter() - t
+    check(nonzero_counts() == {}, "the sharded streaming encode launched a "
+          "kernel")
+    check(data == big_bytes, f"the streaming encode with the mesh wrote "
+          f"{len(data)} bytes unlike hosts=1's {len(big_bytes)}")
+    mp = big.shape[0] * big.shape[1]
+    rec["streaming"] = {"secs": stream_s, "mp_s": mp_s(mp, stream_s),
+                        "bytes_equal": True}
+    log(f"phase sharded streaming encode ({BIG}^2, mesh of {SHARDS}, host "
+        f"clock): {stream_s:.3f} s ({mp_s(mp, stream_s):.2f} MP/s), bytes "
+        "equal to hosts=1's")
+
+    rec["builders"] = drive_builders(devices, dev)
+    b = rec["builders"]
+    log(f"phase sharded builders ({b['mesh']}, 2 x {SIZE}^2): full decode "
+        f"{'equal to' if b['full']['equal'] else 'within tail_tol of'} the "
+        f"unsharded forms (max abs err {b['full']['max_abs_err']:.3g}), "
+        f"{b['full']['ms']:.4f} ms vs {b['full']['unsharded_ms']:.4f} ms; "
+        f"encode equal to encode_coefficients, {b['encode']['ms']:.4f} ms "
+        f"(CUDA events); {smi}")
+    for name, k in kernels.items():
+        k["launches"] = SHARDS
+    return kernels, rec
+
+
 def main():
     import torch
 
@@ -1999,10 +2349,9 @@ def main():
     t = time.perf_counter()
     paths = {"encode": drive_encode(dev, smi)}
     big = make_image(BIG, BIG, 600)
-    _, paths["streaming"] = drive_streaming(big, dev, smi)
+    big_bytes, paths["streaming"] = drive_streaming(big, dev, smi)
     strip_launches, paths["strips"] = drive_strips(big, e5_s[0][0],
                                                    odd_s[0], dev, smi)
-    del big
     for rec in records[:2]:
         name = rec["name"]
         rec["strips"] = {
@@ -2018,6 +2367,15 @@ def main():
     records[1]["refine_trial"], paths["heuristics"] = drive_heuristics(
         dev, smi)
     log(f"phase encoder heuristics: {time.perf_counter() - t:.2f} s")
+
+    # the multi-device path on a mesh (virtual on one card), counted
+    t = time.perf_counter()
+    sharded, paths["sharded"] = drive_sharded(main_s[:BATCH], piped[:BATCH],
+                                              big, big_bytes, dev, smi)
+    del big
+    for rec in records[:2]:
+        rec["sharded"] = sharded[rec["name"]]
+    log(f"phase sharded: {time.perf_counter() - t:.2f} s")
 
     # the TPU gather probes S1-S7 and the device-entropy profile
     t = time.perf_counter()

@@ -529,7 +529,8 @@ def encode_lossy(image: np.ndarray, distance: float = 1.0,
 
 def encode_lossy_streaming(image_or_chunks, width: int = None,
                            height: int = None, distance: float = 1.0,
-                           hosts: int = 1, device="cuda") -> bytes:
+                           hosts: int = 1, mesh=None,
+                           device="cuda") -> bytes:
     """Streaming VarDCT encode: one 2048x2048 DC group at a time with
     bounded memory (EncodeFrameStreaming analog, enc_frame.cc:1975).
 
@@ -539,7 +540,10 @@ def encode_lossy_streaming(image_or_chunks, width: int = None,
     parallel — the multi-host decomposition demo. device: where each DC
     group's pixel math runs, "cuda" by default (a missing card raises) or
     "cpu"; there is no host route (the JAX package always ran this step
-    as a device program), so None raises ValueError."""
+    as a device program), so None raises ValueError. mesh: a
+    parallel/sharding.Mesh over which each DC group's quantize/DCT/CfL
+    step runs with its rows sharded, byte-identical to the sequential
+    encode."""
     if device is None:
         raise ValueError("encode_lossy_streaming runs its DC-group step "
                          "on a torch device; device=None has no host "
@@ -591,7 +595,8 @@ def encode_lossy_streaming(image_or_chunks, width: int = None,
     fh.loop_filter.gab = True
     fh.loop_filter.epf_iters = 2
     encode_vardct_frame_streaming(writer, get_chunk, fh, distance=distance,
-                                  hosts=hosts, dc_distance=public_distance,
+                                  hosts=hosts, mesh=mesh,
+                                  dc_distance=public_distance,
                                   device=device)
     return writer.get_bytes()
 

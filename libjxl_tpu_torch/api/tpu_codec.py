@@ -8,10 +8,12 @@ the port's copy of the host decoder (prepare_batch), staged as one batch
 kernels: dequant + IDCT8 (dequant_idct8), then Gaborish -> EPF passes ->
 sRGB u8 (render_tail).
 decode_pipelined overlaps the host entropy of batch k+1 with the render
-and readback of batch k. decode_batch_entropy moves the AC entropy decode
-onto the device too: the host parses headers, DC and AC metadata
-(prepare_batch_entropy), and the device runs the rANS kernel, the
-placement of its tape and the same render.
+and readback of batch k; decode_batch_sharded splits one batch over the
+devices of a mesh (parallel/sharding.Mesh), one render a device.
+decode_batch_entropy moves the AC entropy decode onto the device too: the
+host parses headers, DC and AC metadata (prepare_batch_entropy), and the
+device runs the rANS kernel, the placement of its tape and the same
+render.
 
 make_device_render is the single-image render that codestream.decode,
 decode_frames and decode_batch take with a device: one frame of any of
@@ -314,6 +316,40 @@ def decode_batch(streams, device="cuda", num_threads: int = 0) -> list:
     per-stream decode()."""
     config, args = prepare_batch(streams, num_threads=num_threads)
     return _render(config, args, device)
+
+
+def decode_batch_sharded(streams, mesh=None, num_threads: int = 0) -> list:
+    """The data-parallel serving decode (the port of
+    decode_tpu_batch_sharded): one prepare_batch of `streams` on the host,
+    the batch axis split over every device of `mesh` (a
+    parallel/sharding.Mesh, every card by default), one BatchRenderer a
+    shard (dequant_idct8 + render_tail), every device synchronized, then
+    the readback. Returns uint8 (H, W, 3) images in input order, cropped
+    as decode_batch crops them; raises JXLError when the batch does not
+    divide across the devices, or (like decode_batch) is not one
+    homogeneous all-DCT8 batch."""
+    from ..parallel.sharding import make_mesh, synchronize
+
+    mesh = make_mesh() if mesh is None else mesh
+    devs = list(mesh.devices.flat)
+    if len(streams) % len(devs):
+        raise JXLError("sharded batch decode: batch size must divide "
+                       f"across {len(devs)} devices")
+    config, args = prepare_batch(streams, num_threads=num_threads)
+    per = len(streams) // len(devs)
+    px = []
+    with torch.inference_mode():
+        for i, dev in enumerate(devs):
+            # the first 7 arrays carry the batch axis; dm, gabk and sad
+            # are shared
+            shard = tuple(a[i * per:(i + 1) * per] if k < 7 else a
+                          for k, a in enumerate(args))
+            renderer, inputs = batch_from_numpy(shard, config, dev)
+            px.append(renderer(*inputs))
+        synchronize(devs)
+        u8 = np.concatenate([p.cpu().numpy() for p in px])
+    th, tw = config.true_size or (config.height, config.width)
+    return [u8[i, :th, :tw] for i in range(u8.shape[0])]
 
 
 def decode_pipelined(streams, device="cuda", batch_size: int = 16,

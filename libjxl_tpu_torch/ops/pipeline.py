@@ -16,7 +16,8 @@ a CPU tensor. The other block strategies' inverse transforms
 reference left to XLA, are torch ops on either device. render_tail_tiled
 runs the render tail tile by tile as the kernel does (halos, per-stage
 mirror refills at the frame edge), in plain torch. The encode stages
-(encode_step and what it calls, at the end) have no hand kernel.
+(encode_step and what it calls, and the sharded encode's
+encode_coefficients, at the end) have no hand kernel.
 """
 
 from __future__ import annotations
@@ -951,3 +952,35 @@ def encode_step_xyb(xyb, dm_inv, dm, inv_global_scale, base_quant,
     q[:, :, :, 0, 0] = 0
     dc = co[:, :, :, 0, 0]
     return q, dc, qf, ytox_map, ytob_map, sharp
+
+
+def encode_coefficients(rgb, qf, dm_inv, dm_y, inv_global_scale, x_dm_mult,
+                        b_dm_mult, inv_dc_quant_mul):
+    """The sharded encode's compute (ComputeCoefficients analog,
+    enc_group.cc:370-520): linear RGB f32[3, H, W] -> XYB -> DCT8 ->
+    rounding quantization, CfL at base_b 1 on the B channel, no dead zone.
+
+    qf: i32[nby, nbx]; dm_inv: f32[3, 8, 8] quant weights; dm_y: f32[8, 8]
+    the Y dequant matrix; inv_dc_quant_mul: f32[3], 1 / mul_dc(c). Returns
+    (q i32[3, nby, nbx, 8, 8] with the LLF zeroed, qdc i32[3, nby, nbx])."""
+    dev = rgb.device
+    co = dct8_blocks(image_to_blocks(rgb_to_xyb(rgb)))
+    scaled = (torch.as_tensor(inv_global_scale, dtype=torch.float32,
+                              device=dev)
+              / qf.to(torch.float32))[:, :, None, None]
+    dm_inv = torch.as_tensor(dm_inv, dtype=torch.float32, device=dev)
+    dm_y = torch.as_tensor(dm_y, dtype=torch.float32, device=dev)
+    qy = torch.round(co[1] * dm_inv[1] / scaled)
+    dy = adjust_quant_bias(qy, 1) * dm_y * scaled
+    qx = torch.round(co[0] * dm_inv[0] / (scaled * float(x_dm_mult)))
+    qb = torch.round((co[2] - dy) * dm_inv[2] / (scaled * float(b_dm_mult)))
+    q = torch.stack([qx, qy, qb]).to(torch.int32)
+    # DC: the block means quantized, with CfL on B (base_b 1)
+    idc = torch.as_tensor(inv_dc_quant_mul, dtype=torch.float32, device=dev)
+    dc = co[:, :, :, 0, 0]
+    qdc_y = torch.round(dc[1] * idc[1])
+    qdc_x = torch.round(dc[0] * idc[0])
+    qdc_b = torch.round((dc[2] - qdc_y / idc[1]) * idc[2])
+    qdc = torch.stack([qdc_x, qdc_y, qdc_b]).to(torch.int32)
+    q[:, :, :, 0, 0] = 0
+    return q, qdc

@@ -18,8 +18,10 @@ SURVEY.md 2.10's "global assembly = all-gather of byte blobs".
 
 The per-DC-group pixel math (ops/pipeline: rgb_to_xyb,
 gaborish_inverse, encode_step_xyb) runs as torch ops on the caller's
-device; the hosts of the thread pool share it. (The JAX package's `mesh`
-option, the step sharded over devices, is not ported yet.)
+device; the hosts of the thread pool share it. With a `mesh`
+(parallel/sharding.Mesh) the step runs with its rows sharded over the
+mesh's devices (sharding.make_sharded_chunk_step) and writes the same
+bytes.
 """
 
 from __future__ import annotations
@@ -103,9 +105,11 @@ class _EncodedDCGroup:
 
 
 def _encode_dc_group(state: VarDCTState, fh: FrameHeader, dc_group_id: int,
-                     get_chunk, dec_tree, wp_header, device):
-    """Compute (on `device`) + entropy-code (on the host) one DC group;
-    returns _EncodedDCGroup."""
+                     get_chunk, dec_tree, wp_header, device,
+                     sharded_step=None):
+    """Compute (prep on `device`, the step there or through sharded_step,
+    make_sharded_chunk_step's callable) + entropy-code (on the host) one
+    DC group; returns _EncodedDCGroup."""
     fd = state.fd
     x0, y0, rw, rh = fd.dc_group_rect(dc_group_id)  # block units
     px0, py0 = x0 * 8, y0 * 8
@@ -150,10 +154,12 @@ def _encode_dc_group(state: VarDCTState, fh: FrameHeader, dc_group_id: int,
         state.nonserialized_distance)
     qf_in = np.clip(qf_float * state.quantizer.inv_global_scale + 0.5,
                     1, QUANT_MAX).astype(np.int32)
-    qall, dc, qf, ytox_map, ytob_map, sharp = step(
-        xyb.astype(np.float32), dm_inv, dm,
-        f32(state.quantizer.inv_global_scale), f32(base_quant),
-        f32(state.x_dm_mult), f32(state.b_dm_mult), qf_in, device)
+    step_args = (xyb.astype(np.float32), dm_inv, dm,
+                 f32(state.quantizer.inv_global_scale), f32(base_quant),
+                 f32(state.x_dm_mult), f32(state.b_dm_mult), qf_in)
+    qall, dc, qf, ytox_map, ytob_map, sharp = \
+        sharded_step(*step_args) if sharded_step is not None \
+        else step(*step_args, device)
     qall = qall[:, :rh, :rw]
     dc = dc[:, :rh, :rw]
     qf = qf[:rh, :rw]
@@ -235,7 +241,7 @@ def _encode_dc_group(state: VarDCTState, fh: FrameHeader, dc_group_id: int,
 
 def encode_vardct_frame_streaming(writer: BitWriter, get_chunk,
                                   fh: FrameHeader, distance: float = 1.0,
-                                  hosts: int = 1,
+                                  hosts: int = 1, mesh=None,
                                   dc_distance: float = None,
                                   device="cuda") -> None:
     """Streaming DCT8 VarDCT encode with bounded per-host memory.
@@ -247,7 +253,9 @@ def encode_vardct_frame_streaming(writer: BitWriter, get_chunk,
     in for one host; real deployment runs the same function per host
     with its chip and gathers the _EncodedDCGroup results over DCN).
     device: where each DC group's pixel math runs ("cuda" by default; a
-    missing card raises; "cpu" runs the same torch ops on the CPU)."""
+    missing card raises; "cpu" runs the same torch ops on the CPU). mesh:
+    a parallel/sharding.Mesh over which each DC group's step runs with its
+    rows sharded (prep stays on `device`); the bytes are the same."""
     from ..base.device import resolve_device
 
     device = resolve_device(device)
@@ -267,9 +275,15 @@ def encode_vardct_frame_streaming(writer: BitWriter, get_chunk,
     dec_tree = encode_tree(tree, tree_writer)
     wp_header = GroupHeader().wp_header
 
+    sharded_step = None
+    if mesh is not None:
+        from ..parallel.sharding import make_sharded_chunk_step
+
+        sharded_step = make_sharded_chunk_step(mesh)
+
     def run(g):
         return _encode_dc_group(state, fh, g, get_chunk, dec_tree,
-                                wp_header, device)
+                                wp_header, device, sharded_step)
 
     if hosts > 1:
         from concurrent.futures import ThreadPoolExecutor

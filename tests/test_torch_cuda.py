@@ -616,3 +616,71 @@ def test_heuristics_torch_forms_on_card_match_cpu(cuda):
         ref = _tile_cost_device(state, *args, torch.device("cpu"))
         assert got.shape == ref.shape and np.isfinite(got).all()
         assert (np.abs(got - ref) > 1e-5 * np.abs(ref)).sum() <= 1
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("epf_iters", [2, 3])
+def test_sharded_full_decode_on_a_virtual_mesh_matches_unsharded(cuda,
+                                                                 epf_iters):
+    """build_sharded_decode_full on a (batch 2, rows 2) mesh of four
+    entries of cuda:0 against the same builder on a 1-entry mesh and
+    against dequant_idct8 + render_tail + xyb_to_rgb over the whole batch:
+    one launch of each kernel a shard, the kernels' rows equal wherever
+    the shard sits. (Against the CPU twins the linear RGB moves by more
+    than the chain's tolerance where the cubes amplify an ulp of XYB:
+    the builder's global scale 1024 puts these XYB values in the tens.)"""
+    from libjxl_tpu_torch.parallel import sharding
+
+    rng = np.random.default_rng(90 + epf_iters)
+    b, h, w = 2, 256, 192
+    q, qf, dc, ytox, ytob, dm, _ = _dequant_inputs(91, b, h, w)
+    isg = rng.uniform(-2.5, -0.3, (b, h // 8, w // 8)).astype(np.float32)
+    ispx = np.repeat(np.repeat(isg, 8, 1), 8, 2)
+    sad = _sad_mul_map(h, w, 2.0 / 3.0).astype(np.float32)
+    args = (q, qf, dc, ytox, ytob, dm, ispx, sad)
+    mesh = sharding.Mesh.of(cuda, 4, batch=2)
+    got, n = _launched(sharding.build_sharded_decode_full(
+        mesh, epf_iters=epf_iters), *args)
+    assert n == {"dequant_idct8": 4, "render_tail": 4}
+    one, n = _launched(sharding.build_sharded_decode_full(
+        sharding.Mesh.of(cuda, 1), epf_iters=epf_iters), *args)
+    assert n == {"dequant_idct8": 1, "render_tail": 1}
+    assert got.device == cuda and got.shape == (b, 3, h, w)
+    np.testing.assert_array_equal(got.cpu().numpy(), one.cpu().numpy())
+    q, qf, dc, ytox, ytob, dm = (_t(a).to(cuda) for a in args[:6])
+    xyb = kernels.dequant_idct8(q, qf, dc, ytox, ytob, dm,
+                                torch.full((b,), 1024.0, device=cuda), 1.0,
+                                1.0)
+    gab = np.stack([gaborish_kernel(*sharding.GAB_DEFAULT[c])
+                    for c in range(3)]).astype(np.float32)
+    ref = tpl.xyb_to_rgb(kernels.render_tail(
+        xyb, _t(gab).to(cuda), _t(isg).to(cuda), _t(sad).to(cuda),
+        sharding.FULL_CHANNEL_SCALE, epf_iters, out="xyb"))
+    np.testing.assert_array_equal(got.cpu().numpy(), ref.cpu().numpy())
+
+
+@pytest.mark.cuda
+def test_sharded_stream_render_and_serving_decode_on_a_virtual_mesh(cuda):
+    """A real 512x512 stream rendered with its rows over 4 entries of
+    cuda:0 equals the single-device render exactly (four launches of each
+    kernel); decode_batch_sharded of 4 streams over the same mesh equals
+    decode_batch, one launch of each kernel a shard."""
+    from libjxl_tpu_torch.api import codestream, tpu_codec
+    from libjxl_tpu_torch.parallel import dryrun, sharding
+
+    mesh = sharding.Mesh.of(cuda, 4)
+    sr = dryrun.StreamRender.of(codestream.encode_lossy(
+        dryrun.photo(512, np.random.default_rng(7)), distance=1.0,
+        effort=3, device=None))
+    got, n = _launched(sr.sharded(mesh), *sr.args)
+    assert n == {"dequant_idct8": 4, "render_tail": 4}
+    single = sr.single(cuda)
+    assert torch.equal(got.permute(1, 2, 0), single)
+    rng = np.random.default_rng(92)
+    streams = [codestream.encode_lossy(
+        np.clip(rng.normal(120, 30, (96, 136, 3)), 0, 255).astype(np.uint8),
+        distance=1.0, effort=3, device=None) for _ in range(4)]
+    outs, n = _launched(tpu_codec.decode_batch_sharded, streams, mesh)
+    assert n == {"dequant_idct8": 4, "render_tail": 4}
+    for g, r in zip(outs, tpu_codec.decode_batch(streams, cuda)):
+        np.testing.assert_array_equal(g, r)
