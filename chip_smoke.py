@@ -107,7 +107,27 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    streaming encode with the mesh (bytes equal to hosts=1's, no launch);
    build_sharded_decode_full and build_sharded_encode on a (batch 2, rows
    2) mesh at 2048x2048 against the unsharded forms on the card;
-12. holds every probe kernel (the TPU gather probes S1-S7,
+12. drives the user entry points on the card, each tool through its
+   main(argv) in this process with the counters reset just before and read
+   just after, on PPM files in a temporary directory: djxl on the four
+   2048x2048 e5 streams (dequant_idct8 and render_tail once a frame,
+   within 1 u8 step of the host decode, MP/s beside djxl --host); djxl
+   --low_memory on the 4096x4096 photo at e3 (16 strips, each kernel
+   once a strip, rows equal to decode_rows on the card); cjxl -e 3 (no
+   launch) and -e 7 (render_tail once a refinement round) of a 2048x2048
+   photo, bytes against codestream.encode_lossy called with cjxl's
+   arguments; a 2048x2048 4:2:0 JPEG made by jpegli, recompressed by
+   cjxl and given back byte for byte by djxl (in a worker process,
+   beside the card work: host code), then rendered by djxl on the card
+   (the YCbCr route: render_tail once) within 1 u8 step of the host
+   decode, and the same for the corpus pair jpeg_recon.{jpg,jxl}; one
+   benchmark row (--codec d1.0, 1024x1024: its host metrics take ~70 s at
+   2048x2048), its decode on the card; Encoder(device) bytes against
+   encode_lossy's; Decoder(device) on a 2048x2048 e5 stream fed in 4
+   chunks (the per-section host route, no launch) and on a 2-frame
+   animation whose second frame blends (the whole-stream route: one
+   dequant_idct8 and one render_tail);
+13. holds every probe kernel (the TPU gather probes S1-S7,
    libjxl_tpu_torch/probes) against its twin, exactly, then drives the
    probes with the counters reset just before: every S1-S5 form timed
    at its TPU probe's step count (ns per lane-step, the marginal cost
@@ -117,7 +137,7 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    cost a step and fixed cost, the tape fill, place's pieces).
 
 It prints the phase seconds, a JSON line of the encode, streaming,
-strip, heuristics and sharded records, the rates (render-only, pipelined
+strip, heuristics, sharded and tools records, the rates (render-only, pipelined
 end-to-end, host-entropy and device-entropy end-to-end MP/s, with the
 device-entropy stages) with the card's name, a line a probe form and the
 K3 split with the card's name and power limit, a JSON line of the kernels
@@ -236,6 +256,53 @@ def ycbcr_stream(h, w, seed):
         planes.append(ycbcr[c][:h2, :w2].reshape(
             h2 // fy, fy, w2 // fx, fx).mean(axis=(1, 3)))
     encode_vardct_subsampled(writer, planes, fh, distance=1.0)
+    return writer.get_bytes()
+
+
+def blend_animation(frames, device):
+    """A lossy animation whose second frame blends onto the first (kAdd
+    from reference slot 1, where the first frame is saved): its frames
+    are not independent, so api/decoder.Decoder decodes it whole through
+    codestream.decode on its device. Written frame by frame as
+    codestream.encode_animation writes its kReplace frames."""
+    from libjxl_tpu_torch.api.codestream import write_codestream_header
+    from libjxl_tpu_torch.io.bits import BitWriter
+    from libjxl_tpu_torch.io.frame_header import (BLEND_ADD, CT_XYB,
+                                                  ENC_VARDCT, FT_REGULAR,
+                                                  FrameHeader)
+    from libjxl_tpu_torch.io.headers import CodecMetadata, SizeHeader
+    from libjxl_tpu_torch.ops.xyb import srgb_to_linear
+    from libjxl_tpu_torch.vardct.frame import encode_vardct_frame
+
+    h, w = frames[0].shape[:2]
+    meta = CodecMetadata()
+    meta.size = SizeHeader().set(w, h)
+    meta.m.all_default = False
+    meta.m.have_animation = True
+    writer = BitWriter()
+    write_codestream_header(writer, meta)
+    for i, frame in enumerate(frames):
+        fh = FrameHeader(meta)
+        fh.all_default = False
+        fh.frame_type = FT_REGULAR
+        fh.encoding = ENC_VARDCT
+        fh.color_transform = CT_XYB
+        fh.flags = 0
+        fh.is_last = i == len(frames) - 1
+        fh.animation_frame.nonserialized_metadata = meta
+        fh.animation_frame.duration = 1
+        if i == 0:
+            fh.save_as_reference = 1
+        else:
+            fh.blending_info.mode = BLEND_ADD
+            fh.blending_info.source = 1
+        fh.loop_filter.all_default = False
+        fh.loop_filter.gab = True
+        fh.loop_filter.epf_iters = 2
+        rgb = np.moveaxis(srgb_to_linear(frame.astype(np.float64) / 255.0),
+                          -1, 0)
+        encode_vardct_frame(writer, rgb, fh, distance=1.0, device=device)
+        writer.zero_pad_to_byte()
     return writer.get_bytes()
 
 
@@ -2171,6 +2238,369 @@ def drive_sharded(main16, piped16, big, big_bytes, dev, smi):
     return kernels, rec
 
 
+# The user entry points (drive_tools): the port's CLIs (libjxl_tpu_torch/
+# tools) through their main(argv) in this process, and its Decoder and
+# Encoder, on the card. The JPEG photo and its host work (the recompression
+# and the reconstruction, both host code) run in a worker process beside
+# the phase's card work; the benchmark row is taken at BENCH_SIDE^2, since
+# the tool's host metrics (butteraugli twice, MS-SSIM, SSIMULACRA 2, all
+# NumPy) take ~70 s at 2048^2
+TOOLS_SEED = 1000  # the cjxl photo
+LOWMEM_STRIPS = 16  # BIG^2 in 256-row strips
+JPEG_SIDE, JPEG_SEED = 2048, 1010
+BENCH_SIDE, BENCH_SEED = 1024, 1020
+ANIM_SIDE, ANIM_SEEDS = 1024, (1030, 1031)
+DECODER_CHUNKS = 4
+
+
+def tool_main(tool, argv):
+    """tool.main(argv) in this process, the launch counters set to 0 just
+    before and read just after: (host seconds, launches, standard output,
+    standard error). Raises unless it returns 0."""
+    import contextlib
+    import io
+
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+
+    out, err = io.StringIO(), io.StringIO()
+    argv = [str(a) for a in argv]
+    reset_launch_counts()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = tool.main(argv)
+    secs = time.perf_counter() - t
+    n = nonzero_counts()
+    check(rc == 0, f"{tool.__name__.rsplit('.', 1)[-1]} {' '.join(argv)}: "
+          f"exit code {rc}: {err.getvalue()[-800:]}")
+    return secs, n, out.getvalue(), err.getvalue()
+
+
+def jpeg_tool_job(job):
+    """Worker process (spawn): the host half of the tools' JPEG path. A
+    side^2 4:2:0 JPEG of make_image by jpegli.encode_jpegli; `cjxl in.jpg
+    out.jxl` (the VarDCT recompression); `djxl out.jxl back.jpg`, which
+    must give back the JPEG's bytes; the host decode of the recompressed
+    codestream, the reference of the card's render. Both tools through
+    main(argv), in a temporary directory; neither may launch a kernel.
+    Returns (record, jpeg bytes, recompressed bytes, host u8)."""
+    import tempfile
+
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.io.container import extract_codestream
+    from libjxl_tpu_torch.jpegli import encode_jpegli
+    from libjxl_tpu_torch.tools import cjxl, djxl
+
+    side, seed = job
+    rec = {"image": f"{side}^2 4:2:0 JPEG (jpegli d1)"}
+    with tempfile.TemporaryDirectory() as tmp:
+        src, jxl = os.path.join(tmp, "in.jpg"), os.path.join(tmp, "out.jxl")
+        back = os.path.join(tmp, "back.jpg")
+        t = time.perf_counter()
+        jpg = encode_jpegli(make_image(side, side, seed), distance=1.0,
+                            subsampling="420")
+        rec["jpegli_s"] = time.perf_counter() - t
+        with open(src, "wb") as f:
+            f.write(jpg)
+        rec["cjxl_s"], n, _, _ = tool_main(cjxl, [src, jxl])
+        check(n == {}, f"cjxl of a JPEG launched {n}")
+        rec["djxl_jpg_s"], n, _, _ = tool_main(djxl, [jxl, back])
+        check(n == {}, f"djxl to .jpg launched {n}")
+        with open(jxl, "rb") as f:
+            data = f.read()
+        with open(back, "rb") as f:
+            check(f.read() == jpg, f"djxl {side}^2: the reconstructed JPEG "
+                  "differs from the original")
+    t = time.perf_counter()
+    ref = codestream.decode(extract_codestream(data), device=None)[0]
+    rec["host_decode_s"] = time.perf_counter() - t
+    rec.update(jpeg_bytes=len(jpg), jxl_bytes=len(data),
+               reconstruction="exact")
+    return rec, jpg, data, ref
+
+
+def drive_tools(e5, big, dev, smi):
+    """The user entry points on the card, each tool call through its
+    main(argv) with the counters reset just before and read just after
+    (tool_main), in a temporary directory, PPM/NPY files only:
+    djxl on the 2048^2 e5 streams (within 1 u8 step of the host decode,
+    one dequant_idct8 and one render_tail a frame, MP/s beside djxl
+    --host); djxl --low_memory of the BIG^2 photo at e3 (dequant_idct8
+    and render_tail once a strip, rows equal to decode_rows(device)'s);
+    cjxl -e 3 (no launch) and -e 7 (render_tail once a refinement round)
+    of a 2048^2 photo, bytes against codestream.encode_lossy called with
+    cjxl's arguments; the JPEG path (jpeg_tool_job in a worker; then
+    `djxl out.jxl out.ppm` on the card, the YCbCr route, within 1 u8 step
+    of the host decode) and the corpus pair jpeg_recon.{jpg,jxl}; one
+    benchmark row (--codec d1.0) at BENCH_SIDE^2, its decode on the card;
+    Encoder(device) bytes against encode_lossy's, Decoder(device) on a
+    2048^2 e5 stream in DECODER_CHUNKS pieces (the per-section host
+    route, no launch) and on an animation whose second frame blends
+    (the whole-stream route through decode on the card). Returns
+    (launches of the whole phase, record)."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+    import tempfile
+
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.api import decoder as tdec
+    from libjxl_tpu_torch.api import encoder as tenc
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+    from libjxl_tpu_torch.extras.io import load_image, save_image
+    from libjxl_tpu_torch.io.container import extract_codestream
+    from libjxl_tpu_torch.tools import benchmark, cjxl, djxl
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    corpus_dir = os.path.join(root, "tests", "data", "conformance")
+    total = {}
+
+    def add(n):
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+
+    rec = {}
+    with cf.ProcessPoolExecutor(1, mp_context=mp.get_context("spawn")) as bg, \
+            tempfile.TemporaryDirectory() as tmp:
+        jpeg_job = bg.submit(jpeg_tool_job, (JPEG_SIDE, JPEG_SEED))
+
+        def path(name):
+            return os.path.join(tmp, name)
+
+        # djxl on the e5 streams, on the card and with --host
+        runs = []
+        for i, (stream, ref) in enumerate(e5):
+            src = path(f"e5_{i}.jxl")
+            with open(src, "wb") as f:
+                f.write(stream)
+            secs, n, _, err = tool_main(djxl, [src, path("card.ppm"), "-v"])
+            add(n)
+            check(n == RENDER_LAUNCHES, f"djxl e5 #{i} launched {n}")
+            check("render path: device:u8" in err, f"djxl e5 #{i}: {err}")
+            steps, share = near_host(load_image(path("card.ppm")), ref,
+                                     f"djxl e5 #{i} on the card")
+            host_s, n, _, _ = tool_main(djxl, [src, path("host.ppm"),
+                                               "--host"])
+            check(n == {} and np.array_equal(load_image(path("host.ppm")),
+                                             ref),
+                  f"djxl --host e5 #{i}: launches {n} or pixels differ "
+                  "from the host decode")
+            runs.append({"card_s": secs, "host_s": host_s, "steps": steps,
+                         "share_off": share})
+        mp_img = SIZE * SIZE
+        rec["djxl_e5"] = {
+            "image": f"{SIZE}^2 d1/e5", "frames": len(runs),
+            "launches_per_frame": RENDER_LAUNCHES,
+            "card_mp_s": [mp_s(mp_img, r["card_s"]) for r in runs],
+            "host_mp_s": [mp_s(mp_img, r["host_s"]) for r in runs],
+            "max_steps": max(r["steps"] for r in runs),
+            "max_share_off": max(r["share_off"] for r in runs)}
+
+        # djxl --low_memory of the BIG^2 photo at e3 (seed 600)
+        data = codestream.encode_lossy(big, distance=1.0, effort=3,
+                                       device=dev)
+        with open(path("big.jxl"), "wb") as f:
+            f.write(data)
+        secs, n, _, err = tool_main(djxl, [path("big.jxl"), path("big.ppm"),
+                                           "--low_memory", "-v"])
+        add(n)
+        want = {"dequant_idct8": LOWMEM_STRIPS, "render_tail": LOWMEM_STRIPS}
+        check(n == want, f"djxl --low_memory launched {n}, not {want}")
+        check("low-memory on cuda" in err, f"djxl --low_memory: {err}")
+        rows = np.concatenate([r for _, r in codestream.decode_rows(
+            data, device=dev)], axis=0)
+        check(np.array_equal(load_image(path("big.ppm")), rows),
+              "djxl --low_memory differs from decode_rows(device)")
+        rec["djxl_low_memory"] = {"image": f"{BIG}^2 d1/e3", "launches": n,
+                                  "mp_s": mp_s(BIG * BIG, secs)}
+
+        # cjxl at e3 and e7 against encode_lossy with cjxl's arguments
+        img = make_image(SIZE, SIZE, TOOLS_SEED)
+        save_image(path("photo.ppm"), img)
+        rec["cjxl"] = []
+        for effort, want in ((3, {}), (7, {"render_tail": E7_ROUNDS})):
+            out = path(f"e{effort}.jxl")
+            secs, n, _, _ = tool_main(cjxl, [path("photo.ppm"), out, "-e",
+                                             effort])
+            add(n)
+            check(n == want, f"cjxl -e {effort} launched {n}, not {want}")
+            t = time.perf_counter()
+            direct = codestream.encode_lossy(
+                img, distance=1.0, group_size_shift=1, icc=None,
+                effort=effort, progressive=1, resampling=1,
+                photon_noise_iso=None, preview=None, intensity_target=None,
+                iterations=None, already_downsampled=False,
+                progressive_dc=False, group_order=0, center_x=None,
+                center_y=None, epf=None, gaborish=None, dots=None,
+                patches=None, noise=False, stats=None, debug_cb=None,
+                device=dev)
+            direct_s = time.perf_counter() - t
+            with open(out, "rb") as f:
+                got = f.read()
+            differ = 0
+            if got != direct:
+                # a near-tie of the card's cost sums can flip a strategy
+                differ = int((capture_frame(got)[0].strategy
+                              != capture_frame(direct)[0].strategy).sum())
+            rec["cjxl"].append({
+                "image": f"{SIZE}^2 d1/e{effort}", "launches": n,
+                "bytes": len(got), "bytes_equal_direct": got == direct,
+                "strategy_blocks_differ": differ,
+                "mp_s": mp_s(mp_img, secs),
+                "direct_mp_s": mp_s(mp_img, direct_s)})
+            near_host(codestream.decode(got, device=dev)[0],
+                      codestream.decode(got, device=None)[0],
+                      f"cjxl -e {effort} stream decoded on the card")
+
+        # one benchmark row, its decode on the card
+        save_image(path("bench.ppm"), make_image(BENCH_SIDE, BENCH_SIDE,
+                                                 BENCH_SEED))
+        secs, n, out, _ = tool_main(benchmark, [path("bench.ppm"),
+                                                "--codec", "d1.0"])
+        add(n)
+        check(n == RENDER_LAUNCHES, f"benchmark d1.0 launched {n}: its "
+              "decode did not run on the card")
+        row = json.loads(out.strip().splitlines()[-1])
+        log(f"benchmark row ({BENCH_SIDE}^2, card): {json.dumps(row)}")
+        check(row["config"] == "d1.0" and row["psnr"] > 30
+              and row["butteraugli"] < 3, f"benchmark row {row}")
+        rec["benchmark"] = {"image": f"{BENCH_SIDE}^2", "row": row,
+                            "launches": n, "tool_s": secs}
+
+        # Encoder(device) against encode_lossy: e3 on the photo, the
+        # default e5 on a 512^2 crop of it
+        rec["encoder"] = []
+        for effort, pixels in ((3, img), (5, img[:512, :512])):
+            enc = tenc.Encoder(device=dev)
+            fs = enc.frame_settings()
+            fs.set_option(tenc.SETTING_EFFORT, effort)
+            enc.add_image_frame(fs, pixels)
+            reset_launch_counts()
+            got = enc.process_output()
+            n = nonzero_counts()
+            add(n)
+            direct = codestream.encode_lossy(pixels, distance=1.0,
+                                             effort=effort, device=dev)
+            check(got == direct, f"Encoder(device) e{effort} bytes differ "
+                  "from encode_lossy's")
+            rec["encoder"].append({"side": pixels.shape[0],
+                                   "effort": effort, "launches": n,
+                                   "bytes": len(got)})
+
+        # Decoder(device): a 2048^2 e5 stream in chunks, then an animation
+        # whose second frame blends (the whole-stream route)
+        stream, ref = e5[0]
+
+        def feed(dec, data, chunks):
+            events = []
+            step = -(-len(data) // chunks)
+            for k in range(0, len(data), step):
+                dec.set_input(data[k:k + step])
+                while True:
+                    events.append(dec.process())
+                    if events[-1] in (tdec.NEED_MORE_INPUT, tdec.FULL_IMAGE,
+                                      tdec.SUCCESS):
+                        break
+                if events[-1] != tdec.NEED_MORE_INPUT:
+                    break
+            return events
+
+        dec = tdec.Decoder(device=dev)
+        reset_launch_counts()
+        t = time.perf_counter()
+        events = feed(dec, stream, DECODER_CHUNKS)
+        secs = time.perf_counter() - t
+        n = nonzero_counts()
+        check(events[-1] == tdec.FULL_IMAGE and n == {},
+              f"Decoder e5: events {events}, launches {n}")
+        steps, _ = near_host(dec.image, ref, "Decoder(device) e5 chunks")
+        rec["decoder_chunks"] = {"image": f"{SIZE}^2 d1/e5",
+                                 "chunks": DECODER_CHUNKS, "events": events,
+                                 "launches": n, "steps": steps,
+                                 "mp_s": mp_s(mp_img, secs)}
+        anim = blend_animation([make_image(ANIM_SIDE, ANIM_SIDE, s)
+                                for s in ANIM_SEEDS], dev)
+        dec = tdec.Decoder(device=dev)
+        reset_launch_counts()
+        events = feed(dec, anim, DECODER_CHUNKS)
+        n = nonzero_counts()
+        add(n)
+        check(events[-1] == tdec.FULL_IMAGE and n == RENDER_LAUNCHES,
+              f"Decoder, blended animation: events {events}, launches {n}")
+        steps, _ = near_host(dec.image, codestream.decode(anim,
+                                                          device=None)[0],
+                             "Decoder(device), blended animation")
+        rec["decoder_whole_stream"] = {
+            "image": f"2 x {ANIM_SIDE}^2 animation, the second frame kAdd",
+            "events": events, "launches": n, "steps": steps}
+
+        # the corpus pair, then the JPEG photo from the worker
+        recon = os.path.join(corpus_dir, "jpeg_recon")
+        _, n, _, _ = tool_main(djxl, [recon + ".jxl", path("c.jpg")])
+        _, n2, _, _ = tool_main(cjxl, [recon + ".jpg", path("c.jxl")])
+        _, n3, _, _ = tool_main(djxl, [path("c.jxl"), path("c2.jpg")])
+        with open(recon + ".jpg", "rb") as f:
+            corpus_jpg = f.read()
+        for name in ("c.jpg", "c2.jpg"):
+            with open(path(name), "rb") as f:
+                check(f.read() == corpus_jpg, f"jpeg_recon: {name} is not "
+                      "the original JPEG")
+        check(n == n2 == n3 == {}, f"JPEG host work launched {n} {n2} {n3}")
+        _, n, _, err = tool_main(djxl, [recon + ".jxl", path("c.ppm"), "-v"])
+        add(n)
+        check(n == PATH_LAUNCHES["device:u8-ycbcr"]
+              and "render path: device:u8-ycbcr" in err,
+              f"djxl jpeg_recon.jxl to pixels: launches {n}; {err}")
+        with open(recon + ".jxl", "rb") as f:
+            corpus_ref = codestream.decode(extract_codestream(f.read()),
+                                           device=None)[0]
+        near_host(load_image(path("c.ppm")), corpus_ref,
+                  "djxl jpeg_recon.jxl on the card")
+        t = time.perf_counter()
+        jrec, jpg, jdata, jref = jpeg_job.result()
+        rec["jpeg_wait_s"] = time.perf_counter() - t
+        with open(path("photo.jxl"), "wb") as f:
+            f.write(jdata)
+        secs, n, _, err = tool_main(djxl, [path("photo.jxl"),
+                                           path("photo.ppm"), "-v"])
+        add(n)
+        check(n == PATH_LAUNCHES["device:u8-ycbcr"]
+              and "render path: device:u8-ycbcr" in err,
+              f"djxl of the recompressed JPEG: launches {n}; {err}")
+        steps, share = near_host(load_image(path("photo.ppm")), jref,
+                                 "djxl of the recompressed JPEG on the card")
+        jrec.update(card_launches=n, card_djxl_s=secs, steps=steps,
+                    share_off=share,
+                    card_mp_s=mp_s(JPEG_SIDE * JPEG_SIDE, secs))
+        rec["jpeg"] = jrec
+        del jpg, jref
+    rec["launches"] = total
+    c = rec["cjxl"]
+    log(f"phase tools: djxl {SIZE}^2 e5 on the card "
+        + ", ".join(f"{v:.2f}" for v in rec["djxl_e5"]["card_mp_s"])
+        + " MP/s beside --host "
+        + ", ".join(f"{v:.2f}" for v in rec["djxl_e5"]["host_mp_s"])
+        + f" MP/s (max {rec['djxl_e5']['max_steps']} step(s), "
+        f"{rec['djxl_e5']['max_share_off']:.2e} off); --low_memory {BIG}^2 "
+        f"{rec['djxl_low_memory']['mp_s']:.2f} MP/s, launches "
+        f"{rec['djxl_low_memory']['launches']}; "
+        + "; ".join(f"cjxl {r['image']} {r['mp_s']:.3f} MP/s (direct "
+                    f"encode_lossy {r['direct_mp_s']:.3f}), launches "
+                    f"{r['launches']}, bytes "
+                    f"{'equal' if r['bytes_equal_direct'] else 'differ'}"
+                    f" ({r['strategy_blocks_differ']} strategy blocks)"
+                    for r in c)
+        + f"; JPEG {JPEG_SIDE}^2: cjxl {rec['jpeg']['cjxl_s']:.2f} s, djxl "
+        f"to .jpg {rec['jpeg']['djxl_jpg_s']:.2f} s (exact), djxl to pixels "
+        f"on the card {rec['jpeg']['card_djxl_s']:.2f} s "
+        f"({rec['jpeg']['card_mp_s']:.2f} MP/s, max "
+        f"{rec['jpeg']['steps']} step(s)), waited "
+        f"{rec['jpeg_wait_s']:.2f} s for the worker; Decoder e5 in "
+        f"{DECODER_CHUNKS} chunks {rec['decoder_chunks']['mp_s']:.2f} MP/s "
+        f"(no launch), blended animation launches "
+        f"{rec['decoder_whole_stream']['launches']}; phase launches "
+        f"{total}; {smi}")
+    return total, rec
+
+
 def main():
     import torch
 
@@ -2372,10 +2802,17 @@ def main():
     t = time.perf_counter()
     sharded, paths["sharded"] = drive_sharded(main_s[:BATCH], piped[:BATCH],
                                               big, big_bytes, dev, smi)
-    del big
     for rec in records[:2]:
         rec["sharded"] = sharded[rec["name"]]
     log(f"phase sharded: {time.perf_counter() - t:.2f} s")
+
+    # the user entry points: the CLIs, the Decoder and the Encoder
+    t = time.perf_counter()
+    tools, paths["tools"] = drive_tools(e5_s, big, dev, smi)
+    del big
+    for rec in records[:2]:
+        rec["tools"] = {"launches": tools.get(rec["name"], 0)}
+    log(f"phase tools: {time.perf_counter() - t:.2f} s")
 
     # the TPU gather probes S1-S7 and the device-entropy profile
     t = time.perf_counter()

@@ -40,3 +40,13 @@ def heatmap(values: np.ndarray, vmin=None, vmax=None) -> np.ndarray:
     frac = (t - idx)[..., None]
     rgb = _HEAT[idx] * (1 - frac) + _HEAT[idx + 1] * frac
     return np.clip(np.round(rgb), 0, 255).astype(np.uint8)
+
+
+def save_heatmap(values: np.ndarray, path: str, scale: int = 8) -> None:
+    """Write a per-block field (e.g. raw quant field, EPF sharpness,
+    AC strategy ids) as an upscaled PNG heatmap."""
+    from ..extras.io import save_image
+
+    img = heatmap(values)
+    img = np.repeat(np.repeat(img, scale, 0), scale, 1)
+    save_image(path, img)

@@ -1,6 +1,7 @@
 """ctypes loader for the native C hot loops of the host layers
 (native/*.c: AC and modular entropy decode, AC tokenization, the rANS
-writer, the host render filters).
+writer, the LZ77 match search, the JPEG scan coder and decoder, the host
+render filters).
 
 Built at first use with the system C compiler into build/libjxl_tpu_torch/
 at the repository root, under a name that carries a hash of the sources,
@@ -24,6 +25,7 @@ import numpy as np
 _NATIVE = pathlib.Path(__file__).resolve().parent / "native"
 _SRCS = tuple(_NATIVE / name for name in (
     "modular_decode.c", "ans_write.c", "vardct_decode.c", "vardct_encode.c",
+    "lz77_match.c", "jpegli_scan.c", "jpeg_scan_decode.c",
     "render_filters.c"))
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[1] / "build" \
     / "libjxl_tpu_torch"
@@ -659,3 +661,163 @@ def hybrid_tokenize_mixed_native(lib, ctx, val, lz, cfg, lcfg,
     if rc != 0:
         return None
     return tok, nbits, bits
+
+
+def jpegli_scan_native(lib, comps, enc_tables, mcux: int, mcuy: int,
+                       restart_interval: int):
+    """Baseline interleaved scan emission in C (native/jpegli_scan.c).
+
+    comps: sequence of objects with .coeffs (nby, nbx, 64) int32
+    zigzag, .h_samp/.v_samp and .dc_table/.ac_table ids; enc_tables:
+    dict (table_class, table_id) -> {symbol: (length, code)}.
+    Returns scan bytes (stuffed, 1-padded) or None when the native
+    library is unavailable.
+    """
+    if lib is None:
+        return None
+    slots = sorted(enc_tables)
+    ntab = len(slots)
+    depths = np.zeros((ntab, 256), dtype=np.uint8)
+    codes = np.zeros((ntab, 256), dtype=np.uint16)
+    slot_idx = {}
+    for i, key in enumerate(slots):
+        slot_idx[key] = i
+        for sym, (ln, code) in enc_tables[key].items():
+            depths[i, sym] = ln
+            codes[i, sym] = code
+    ncomp = len(comps)
+    blobs = []
+    offs = np.zeros(ncomp, dtype=np.int64)
+    nbxs = np.zeros(ncomp, dtype=np.int32)
+    vss = np.zeros(ncomp, dtype=np.int32)
+    hss = np.zeros(ncomp, dtype=np.int32)
+    dcs = np.zeros(ncomp, dtype=np.int32)
+    acs = np.zeros(ncomp, dtype=np.int32)
+    total = 0
+    for i, c in enumerate(comps):
+        arr = np.ascontiguousarray(c.coeffs.reshape(-1, 64),
+                                   dtype=np.int32)
+        blobs.append(arr)
+        offs[i] = total
+        total += arr.shape[0]
+        nbxs[i] = c.coeffs.shape[1]
+        vss[i] = c.v_samp
+        hss[i] = c.h_samp
+        dcs[i] = slot_idx[(0, c.dc_table)]
+        acs[i] = slot_idx[(1, c.ac_table)]
+    coeffs = np.concatenate(blobs) if blobs else \
+        np.zeros((0, 64), dtype=np.int32)
+    cap = total * 300 + 4096 + (total // max(restart_interval, 1)) * 2 \
+        if restart_interval else total * 300 + 4096
+    out = np.zeros(cap, dtype=np.uint8)
+    lib.jpegli_encode_scan.restype = ctypes.c_int64
+    n = lib.jpegli_encode_scan(
+        _ptr(coeffs, ctypes.c_int32), _ptr(offs, ctypes.c_int64),
+        _ptr(nbxs, ctypes.c_int32), _ptr(vss, ctypes.c_int32),
+        _ptr(hss, ctypes.c_int32), _ptr(dcs, ctypes.c_int32),
+        _ptr(acs, ctypes.c_int32), ctypes.c_int(ncomp),
+        ctypes.c_int(mcux), ctypes.c_int(mcuy),
+        ctypes.c_int(restart_interval),
+        _ptr(depths, ctypes.c_uint8), _ptr(codes, ctypes.c_uint16),
+        _ptr(out, ctypes.c_uint8), ctypes.c_int64(cap))
+    if n < 0:
+        return None
+    return out[:n].tobytes()
+
+
+def jpeg_decode_scan_native(lib, data: bytes, start: int, comps,
+                            dec_specs, huffman, mcux: int, mcuy: int,
+                            restart_interval: int):
+    """Baseline sequential scan decode in C (native/jpeg_scan_decode.c).
+
+    comps: scan components (jpeg.data.Component) in scan order;
+    dec_specs: per component (grp_v, grp_h) block counts per MCU;
+    huffman: list of jpeg.data.HuffmanTable.  Returns (new_pos,
+    per_comp_coeffs int16 list, rst_pads list[str], final_pad str,
+    extra_zero_runs list[(idx, n)]) or None to fall back to Python.
+    """
+    if lib is None:
+        return None
+    ntab = len(huffman)
+    if ntab == 0 or ntab > 16 or len(comps) > 8:
+        return None
+    counts = np.zeros((ntab, 16), dtype=np.uint8)
+    values = np.zeros((ntab, 256), dtype=np.uint8)
+    nvals = np.zeros(ntab, dtype=np.int32)
+    slot = {}
+    for i, t in enumerate(huffman):
+        # later DHTs with the same id replace earlier ones (slot reuse)
+        slot[(t.table_class, t.table_id)] = i
+        counts[i] = t.counts
+        n = min(len(t.values), 256)
+        values[i, :n] = t.values[:n]
+        nvals[i] = n
+    ncomp = len(comps)
+    offs = np.zeros(ncomp, dtype=np.int64)
+    nbxs = np.zeros(ncomp, dtype=np.int32)
+    gvs = np.zeros(ncomp, dtype=np.int32)
+    ghs = np.zeros(ncomp, dtype=np.int32)
+    dcs = np.zeros(ncomp, dtype=np.int32)
+    acs = np.zeros(ncomp, dtype=np.int32)
+    total = 0
+    for i, (c, (gv, gh)) in enumerate(zip(comps, dec_specs)):
+        key_dc = (0, c.dc_table)
+        key_ac = (1, c.ac_table)
+        if key_dc not in slot or key_ac not in slot:
+            return None
+        offs[i] = total
+        total += c.coeffs.shape[0] * c.coeffs.shape[1]
+        nbxs[i] = c.coeffs.shape[1]
+        gvs[i] = gv
+        ghs[i] = gh
+        dcs[i] = slot[key_dc]
+        acs[i] = slot[key_ac]
+    buf = np.zeros(total * 64, dtype=np.int16)
+    dview = np.frombuffer(data, dtype=np.uint8)
+    n_restarts_max = (mcux * mcuy) // restart_interval + 2 \
+        if restart_interval else 2
+    rst_len = np.zeros(n_restarts_max, dtype=np.uint8)
+    rst_bits = np.zeros(n_restarts_max, dtype=np.uint8)
+    n_rst = ctypes.c_int64(0)
+    fin_len = ctypes.c_int32(0)
+    fin_bits = ctypes.c_int32(0)
+    ezr_cap = 65536
+    ezr_idx = np.zeros(ezr_cap, dtype=np.int64)
+    ezr_n = np.zeros(ezr_cap, dtype=np.int32)
+    n_ezr = ctypes.c_int64(0)
+    lib.jpeg_decode_baseline_scan.restype = ctypes.c_int64
+    rc = lib.jpeg_decode_baseline_scan(
+        _ptr(dview, ctypes.c_uint8), ctypes.c_int64(len(data)),
+        ctypes.c_int64(start), _ptr(buf, ctypes.c_int16),
+        _ptr(offs, ctypes.c_int64), _ptr(nbxs, ctypes.c_int32),
+        _ptr(gvs, ctypes.c_int32), _ptr(ghs, ctypes.c_int32),
+        _ptr(dcs, ctypes.c_int32), _ptr(acs, ctypes.c_int32),
+        ctypes.c_int(ncomp), ctypes.c_int(mcux), ctypes.c_int(mcuy),
+        ctypes.c_int(restart_interval),
+        _ptr(counts, ctypes.c_uint8), _ptr(values, ctypes.c_uint8),
+        _ptr(nvals, ctypes.c_int32), ctypes.c_int(ntab),
+        _ptr(rst_len, ctypes.c_uint8), _ptr(rst_bits, ctypes.c_uint8),
+        ctypes.c_int64(n_restarts_max), ctypes.byref(n_rst),
+        ctypes.byref(fin_len), ctypes.byref(fin_bits),
+        _ptr(ezr_idx, ctypes.c_int64), _ptr(ezr_n, ctypes.c_int32),
+        ctypes.c_int64(ezr_cap), ctypes.byref(n_ezr))
+    if rc == -3:
+        return None
+    if rc < 0:
+        from .base.status import JXLError
+
+        raise JXLError("invalid JPEG scan (native)")
+    per_comp = []
+    for i, c in enumerate(comps):
+        nb = c.coeffs.shape[0] * c.coeffs.shape[1]
+        per_comp.append(
+            buf[offs[i] * 64:(offs[i] + nb) * 64]
+            .reshape(c.coeffs.shape))
+    pads = [format(int(rst_bits[i]), f"0{int(rst_len[i])}b")
+            if rst_len[i] else ""
+            for i in range(int(n_rst.value))]
+    fin = format(fin_bits.value, f"0{fin_len.value}b") \
+        if fin_len.value else ""
+    ezr = [(int(ezr_idx[i]), int(ezr_n[i]))
+           for i in range(int(n_ezr.value))]
+    return int(rc), per_comp, pads, fin, ezr

@@ -684,3 +684,40 @@ def test_sharded_stream_render_and_serving_decode_on_a_virtual_mesh(cuda):
     assert n == {"dequant_idct8": 4, "render_tail": 4}
     for g, r in zip(outs, tpu_codec.decode_batch(streams, cuda)):
         np.testing.assert_array_equal(g, r)
+
+
+@pytest.mark.cuda
+def test_djxl_on_card_renders_through_the_kernels(cuda, tmp_path):
+    """djxl by default on the card: one dequant_idct8 and one render_tail
+    for a two-group e5 frame, within one u8 step of djxl --host."""
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.extras.io import load_image
+    from libjxl_tpu_torch.tools import djxl
+
+    src = tmp_path / "a.jxl"
+    src.write_bytes(codestream.encode_lossy(_photo(256, 320, 16),
+                                            distance=1.0, effort=5,
+                                            device=None))
+    rc, n = _launched(djxl.main, [str(src), str(tmp_path / "card.ppm")])
+    assert rc == 0 and n == {"dequant_idct8": 1, "render_tail": 1}
+    assert djxl.main([str(src), str(tmp_path / "host.ppm"), "--host"]) == 0
+    got = load_image(tmp_path / "card.ppm").astype(int)
+    assert np.abs(got - load_image(tmp_path / "host.ppm")).max() <= 1
+
+
+@pytest.mark.cuda
+def test_cjxl_e7_on_card_equals_encode_lossy(cuda, tmp_path):
+    """cjxl -e 7 on the card: render_tail once a refinement round (2), and
+    the bytes of encode_lossy(..., effort=7) on the card."""
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.extras.io import save_image
+    from libjxl_tpu_torch.tools import cjxl
+
+    img = _photo(192, 224, 17)
+    save_image(tmp_path / "in.ppm", img)
+    out = tmp_path / "out.jxl"
+    rc, n = _launched(cjxl.main, [str(tmp_path / "in.ppm"), str(out), "-e",
+                                  "7"])
+    assert rc == 0 and n == {"render_tail": 2}
+    assert out.read_bytes() == codestream.encode_lossy(img, distance=1.0,
+                                                       effort=7, device=cuda)
