@@ -127,7 +127,24 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    chunks (the per-section host route, no launch) and on a 2-frame
    animation whose second frame blends (the whole-stream route: one
    dequant_idct8 and one render_tail);
-13. holds every probe kernel (the TPU gather probes S1-S7,
+13. drives the conformance runner, the fuzz harness and the last host
+   tools on the card, each counted: `conformance generate --device cuda`
+   of a 2048x2048 d1/e5 photo, a 2048x2048 d2/e7 photo (render_tail once
+   a refinement round) and a 256x256 lossless case, then `conformance
+   check` of that corpus on the card (one dequant_idct8 and one
+   render_tail a VarDCT case) and with --host (no launch), every case
+   passing the runner's bounds both ways; tools/fuzz.run on the card for
+   the decode and container targets (200 inputs each) and the encode
+   target (100), seed 0: no finding, with the inputs during which a
+   kernel launched counted (at least one); the first 16-stream batch
+   through the kernel checks of step 3 again (a sticky CUDA error left by
+   a fuzzed launch fails there); on a 2048x2048 e5 .jxl input
+   decode_and_encode and the decode_oneshot example (within 1 u8 step of
+   the host decode), cjxl (bytes equal to encode_lossy of the card's
+   decode with cjxl's arguments), cjpegli and the encode_oneshot example;
+   butteraugli_main and ssimulacra2_main of a 512x512 .jxl against its
+   source; rd_measure of a 64x64 .jxl where the system libjxl is present;
+14. holds every probe kernel (the TPU gather probes S1-S7,
    libjxl_tpu_torch/probes) against its twin, exactly, then drives the
    probes with the counters reset just before: every S1-S5 form timed
    at its TPU probe's step count (ns per lane-step, the marginal cost
@@ -137,7 +154,8 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    cost a step and fixed cost, the tape fill, place's pieces).
 
 It prints the phase seconds, a JSON line of the encode, streaming,
-strip, heuristics, sharded and tools records, the rates (render-only, pipelined
+strip, heuristics, sharded, tools and conformance+fuzz records, a JSON
+line of the conformance+fuzz record alone, the rates (render-only, pipelined
 end-to-end, host-entropy and device-entropy end-to-end MP/s, with the
 device-entropy stages) with the card's name, a line a probe form and the
 K3 split with the card's name and power limit, a JSON line of the kernels
@@ -2601,6 +2619,233 @@ def drive_tools(e5, big, dev, smi):
     return total, rec
 
 
+# The conformance runner, the fuzz harness and the last host tools on the
+# card (drive_conformance_fuzz). The corpus holds two 2048^2 photos (d1/e5,
+# and d2/e7, whose refinement launches render_tail once a round) and one
+# lossless case at 256^2: the lossless encode is host Python. The metric
+# CLIs run at METRIC_SIDE^2: their host metrics take ~70 s at 2048^2.
+CONF_CASES = (("photo_e5", SIZE, 1100, ["-d", "1", "-e", "5"]),
+              ("photo_e7", SIZE, 1101, ["-d", "2", "-e", "7"]),
+              ("lossless", 256, 1102, ["--lossless"]))
+CONF_LAUNCHES = {"photo_e5": RENDER_LAUNCHES,
+                 "photo_e7": {"dequant_idct8": 1,
+                              "render_tail": 1 + E7_ROUNDS},
+                 "lossless": {}}
+FUZZ_RUNS = (("decode", 200), ("container", 200), ("encode", 100))
+FUZZ_SEED = 0
+METRIC_SIDE, METRIC_SEED = 512, 1110
+RD_SIDE, RD_SEED = 64, 1120
+
+
+def _frame_errors(verbose_out):
+    """(rmse, peak) of every frame line `conformance check -v` prints."""
+    errs = []
+    for line in verbose_out.splitlines():
+        if line.strip().startswith("frame ") and "rmse=" in line:
+            rmse = float(line.split("rmse=")[1].split()[0])
+            peak = float(line.split("peak=")[1].split()[0])
+            errs.append((rmse, peak))
+    return errs
+
+
+def drive_conformance_fuzz(e5, batch, dev, smi):
+    """The conformance runner, the fuzz harness and the remaining tools on
+    the card, each call through main(argv) (tool_main) or fuzz.run with the
+    counters reset just before and read just after, in a temporary
+    directory: `conformance generate --device cuda` of CONF_CASES (K1 and
+    render_tail once a VarDCT case's reference decode, render_tail once
+    more a refinement round at e7), `conformance check` of that corpus on
+    the card (one K1 and one render_tail a VarDCT case) and with --host
+    (no launch; the host decode held to the card-made references at the
+    runner's own bounds); fuzz.run on the card for FUZZ_RUNS at seed
+    FUZZ_SEED: no finding, and a nonzero count of inputs during which a
+    kernel launched; then `batch` through check_kernels again, so that a
+    sticky CUDA error left by a fuzzed launch fails here; then on the first
+    2048^2 e5 stream: decode_and_encode to PPM and the decode_oneshot
+    example (within 1 u8 step of the host decode), cjxl (the bytes of
+    encode_lossy of load_image(device) with cjxl's arguments), cjpegli,
+    the encode_oneshot example (its stream decoded on the card within 1
+    step of the host decode); butteraugli_main and ssimulacra2_main of a
+    METRIC_SIDE^2 .jxl against its PPM source; rd_measure of a RD_SIDE^2
+    .jxl where the system libjxl is present (its own encode is host code).
+    Returns (launches of the whole phase, record)."""
+    import contextlib
+    import io
+    import tempfile
+
+    from libjxl_tpu_torch.api import codestream, tpu_codec
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+    from libjxl_tpu_torch.examples import decode_oneshot, encode_oneshot
+    from libjxl_tpu_torch.extras import oracle
+    from libjxl_tpu_torch.extras.io import load_image, save_image
+    from libjxl_tpu_torch.io.container import extract_codestream
+    from libjxl_tpu_torch.tools import (butteraugli_main, cjpegli, cjxl,
+                                        conformance, decode_and_encode,
+                                        fuzz, rd_measure, ssimulacra2_main)
+
+    total = {}
+
+    def add(n):
+        for k, v in n.items():
+            total[k] = total.get(k, 0) + v
+
+    rec = {"steps": 0}
+    with tempfile.TemporaryDirectory() as tmp:
+        def path(name):
+            return os.path.join(tmp, name)
+
+        # the conformance corpus, generated on the card, checked both ways
+        corpus = path("corpus")
+        rec["generate"] = []
+        for name, side, seed, extra in CONF_CASES:
+            save_image(path(f"{name}.ppm"), make_image(side, side, seed))
+            secs, n, out, _ = tool_main(conformance, [
+                "generate", path(f"{name}.ppm"), "--out", corpus, *extra,
+                "--device", "cuda"])
+            add(n)
+            check(n == CONF_LAUNCHES[name] and f"generated {name}" in out,
+                  f"conformance generate {name}: launches {n}, not "
+                  f"{CONF_LAUNCHES[name]}; {out}")
+            rec["generate"].append({"case": name, "side": side,
+                                    "args": extra, "s": secs,
+                                    "launches": n})
+        pixels = sum(side * side for _, side, _, _ in CONF_CASES)
+        vardct = sum(1 for c in CONF_LAUNCHES.values() if c)
+        for label, flag, want in (
+                ("card", ["--device", "cuda"],
+                 {k: vardct for k in RENDER_LAUNCHES}),
+                ("host", ["--host"], {})):
+            secs, n, out, _ = tool_main(conformance, ["check", corpus, "-v",
+                                                      *flag])
+            add(n)
+            errs = _frame_errors(out)
+            check(n == want and "3/3 cases pass" in out and len(errs) == 3,
+                  f"conformance check ({label}): launches {n}, not {want}; "
+                  f"{out}")
+            rec[f"check_{label}"] = {
+                "s": secs, "launches": n, "mp_s": mp_s(pixels, secs),
+                "max_rmse": max(e[0] for e in errs),
+                "max_peak": max(e[1] for e in errs)}
+
+        # the fuzz harness on the card
+        rec["fuzz"] = {}
+        for target, iters in FUZZ_RUNS:
+            stats, err = {}, io.StringIO()
+            reset_launch_counts()
+            t = time.perf_counter()
+            with contextlib.redirect_stderr(err):
+                findings = fuzz.run(target, iters, FUZZ_SEED, device=dev,
+                                    stats=stats)
+            secs = time.perf_counter() - t
+            n = nonzero_counts()
+            add(n)
+            check(findings == 0 and stats["inputs"] == iters,
+                  f"fuzz {target} on the card: {findings} finding(s): "
+                  f"{err.getvalue()[-2000:]}")
+            rec["fuzz"][target] = {**stats, "iters": iters,
+                                   "findings": findings, "launches": n,
+                                   "s": secs}
+        reached = sum(r["reached_kernel"] for r in rec["fuzz"].values())
+        check(reached > 0, "no fuzzed input reached a kernel launch")
+        rec["fuzz_reached_kernel"] = reached
+        config, args = tpu_codec.prepare_batch(batch)
+        renderer, inputs = tpu_codec.batch_from_numpy(args, config, dev)
+        after = check_kernels(renderer, inputs, config)
+        rec["kernels_after_fuzz"] = {r["name"]: r["max_abs_err"]
+                                     for r in after}
+        del renderer, inputs, args
+
+        # the tools and the examples on a 2048^2 .jxl input
+        stream, ref = e5[0]
+        src = path("e5.jxl")
+        with open(src, "wb") as f:
+            f.write(stream)
+        mp_img = SIZE * SIZE
+        rec["tools"] = {}
+
+        def tool(name, mod, argv, pixels=mp_img):
+            secs, n, out, _ = tool_main(mod, argv)
+            add(n)
+            check(n == RENDER_LAUNCHES,
+                  f"{name}: launched {n}, not {RENDER_LAUNCHES}")
+            rec["tools"][name] = {"s": secs, "launches": n,
+                                  "mp_s": mp_s(pixels, secs)}
+            return out
+
+        def held(name, got, want):
+            steps, share = near_host(got, want, f"{name} on the card")
+            rec["tools"][name].update(steps=steps, share_off=share)
+            rec["steps"] = max(rec["steps"], steps)
+
+        tool("decode_and_encode", decode_and_encode, [src, path("dae.ppm")])
+        held("decode_and_encode", load_image(path("dae.ppm")), ref)
+        tool("decode_oneshot", decode_oneshot, [src, path("one.ppm")])
+        held("decode_oneshot", load_image(path("one.ppm")), ref)
+        tool("cjxl", cjxl, [src, path("re.jxl")])
+        direct = codestream.encode_lossy(
+            load_image(src, device=dev), distance=1.0, group_size_shift=1,
+            icc=None, effort=3, progressive=1, resampling=1,
+            photon_noise_iso=None, preview=None, intensity_target=None,
+            iterations=None, already_downsampled=False, progressive_dc=False,
+            group_order=0, center_x=None, center_y=None, epf=None,
+            gaborish=None, dots=None, patches=None, noise=False, stats=None,
+            debug_cb=None, device=dev)
+        with open(path("re.jxl"), "rb") as f:
+            check(f.read() == direct, "cjxl e5.jxl: bytes differ from "
+                  "encode_lossy(load_image(e5.jxl, device)) with cjxl's "
+                  "arguments")
+        tool("cjpegli", cjpegli, [src, path("e5.jpg")])
+        with open(path("e5.jpg"), "rb") as f:
+            jpg = f.read()
+        check(jpg[:2] == b"\xff\xd8" and jpg[-2:] == b"\xff\xd9",
+              "cjpegli e5.jxl: not a JPEG")
+        rec["tools"]["cjpegli"]["bytes"] = len(jpg)
+        tool("encode_oneshot", encode_oneshot, [src, path("again.jxl")])
+        with open(path("again.jxl"), "rb") as f:
+            again = extract_codestream(f.read())
+        held("encode_oneshot", codestream.decode(again, device=dev)[0],
+             codestream.decode(again, device=None)[0])
+
+        # the metric CLIs, and rd_measure where the system libjxl is
+        img = make_image(METRIC_SIDE, METRIC_SIDE, METRIC_SEED)
+        save_image(path("m.ppm"), img)
+        with open(path("m.jxl"), "wb") as f:
+            f.write(codestream.encode_lossy(img, distance=1.0, device=dev))
+        for name, mod in (("butteraugli_main", butteraugli_main),
+                          ("ssimulacra2_main", ssimulacra2_main)):
+            rec["tools"][name]["score"] = float(tool(
+                name, mod, [path("m.ppm"), path("m.jxl")], METRIC_SIDE ** 2))
+        check(0 < rec["tools"]["butteraugli_main"]["score"] < 4
+              and rec["tools"]["ssimulacra2_main"]["score"] > 50,
+              f"metric CLIs at d1: {rec['tools']}")
+        rec["oracle"] = oracle.available()
+        if rec["oracle"]:
+            small = make_image(RD_SIDE, RD_SIDE, RD_SEED)
+            with open(path("rd.jxl"), "wb") as f:
+                f.write(codestream.encode_lossy(small, effort=3, device=None))
+            out = tool("rd_measure", rd_measure, [path("rd.jxl")],
+                       RD_SIDE ** 2)
+            check("over 12 cells" in out, f"rd_measure: {out[-500:]}")
+    rec["launches"] = total
+    t = rec["tools"]
+    log(f"phase conformance+fuzz: generate "
+        + ", ".join(f"{g['case']} {g['s']:.2f} s {g['launches']}"
+                    for g in rec["generate"])
+        + f"; check on the card {rec['check_card']['s']:.2f} s "
+        f"({rec['check_card']['mp_s']:.2f} MP/s, rmse <= "
+        f"{rec['check_card']['max_rmse']:.6f}), --host "
+        f"{rec['check_host']['s']:.2f} s ({rec['check_host']['mp_s']:.2f} "
+        f"MP/s, rmse <= {rec['check_host']['max_rmse']:.6f}, peak <= "
+        f"{rec['check_host']['max_peak']:.6f}); fuzz "
+        + ", ".join(f"{k} {v['iters']} inputs {v['findings']} findings "
+                    f"{v['rejected']} rejected {v['reached_kernel']} reached "
+                    f"a kernel {v['s']:.2f} s"
+                    for k, v in rec["fuzz"].items())
+        + "; " + ", ".join(f"{k} {v['s']:.2f} s" for k, v in t.items())
+        + f"; max {rec['steps']} step(s); phase launches {total}; {smi}")
+    return total, rec
+
+
 def main():
     import torch
 
@@ -2814,6 +3059,15 @@ def main():
         rec["tools"] = {"launches": tools.get(rec["name"], 0)}
     log(f"phase tools: {time.perf_counter() - t:.2f} s")
 
+    # the conformance runner, the fuzz harness and the last tools, counted
+    t = time.perf_counter()
+    conf, paths["conformance_fuzz"] = drive_conformance_fuzz(
+        e5_s, main_s[:BATCH], dev, smi)
+    for rec in records[:2]:
+        rec["conformance_fuzz"] = {"launches": conf.get(rec["name"], 0)}
+    paths["conformance_fuzz"]["phase_s"] = time.perf_counter() - t
+    log(f"phase conformance+fuzz: {time.perf_counter() - t:.2f} s")
+
     # the TPU gather probes S1-S7 and the device-entropy profile
     t = time.perf_counter()
     errs = check_probes(small_s, main_s[:BATCH], dev)
@@ -2850,6 +3104,8 @@ def main():
             f"{k} {v * 1e3:.4f} ms" for k, v in stages.items()))
     log(f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"paths": paths}), flush=True)
+    print(json.dumps({"conformance_fuzz": paths["conformance_fuzz"]}),
+          flush=True)
     print(json.dumps({"kernels": records}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -89,3 +89,20 @@ def card_line() -> str:
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True)
     return res.stdout.strip().splitlines()[0]
+
+
+def add_device_args(parser, what: str) -> None:
+    """A tool's --device {cuda,cpu} (default cuda) and --host flags, for
+    `what` (e.g. "a .jxl input's decode"); cli_device reads them."""
+    parser.add_argument("--device", choices=("cuda", "cpu"), default="cuda",
+                        help=f"torch device of {what}: cuda (the default; "
+                             "raises without a card) or cpu (the kernels' "
+                             "plain twins)")
+    parser.add_argument("--host", action="store_true",
+                        help=f"run {what} on the host (no device stage)")
+
+
+def cli_device(args):
+    """The device the parsed --device / --host flags ask for: None (the
+    host route) under --host."""
+    return None if args.host else args.device

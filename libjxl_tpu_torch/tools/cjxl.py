@@ -2,10 +2,11 @@
 
 Usage: python -m libjxl_tpu_torch.tools.cjxl INPUT OUTPUT.jxl [options]
 
-A lossy encode's device stages run on --device (the CUDA card by default:
-a missing card raises where a stage needs it; "cpu" runs the torch forms
-with the kernels' plain twins); --host encodes on the host (no route for
---streaming). Lossless encodes and JPEG recompression run on the host.
+A lossy encode's device stages, and the decode of a .jxl input, run on
+--device (the CUDA card by default: a missing card raises where a stage
+needs it; "cpu" runs the torch forms with the kernels' plain twins);
+--host runs both on the host (no route for --streaming). Lossless encodes
+and JPEG recompression run on the host.
 """
 
 from __future__ import annotations
@@ -242,7 +243,7 @@ def _main(argv=None):
                 print(f"Encoded animation ({len(anim)} bytes)",
                       file=sys.stderr)
             return 0
-    image, icc = load_image(args.input, return_icc=True)
+    image, icc = load_image(args.input, return_icc=True, device=device)
 
     def _encode_once():
         return _run_encode(args, image, icc, lossless, distance, device)

@@ -721,3 +721,51 @@ def test_cjxl_e7_on_card_equals_encode_lossy(cuda, tmp_path):
     assert rc == 0 and n == {"render_tail": 2}
     assert out.read_bytes() == codestream.encode_lossy(img, distance=1.0,
                                                        effort=7, device=cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("target", ["decode", "container", "encode"])
+def test_fuzz_target_on_card_has_no_findings(cuda, target):
+    """The fuzz harness on the card (tests/test_conformance_fuzz.py's 25
+    iterations): no finding, and the kernels still agree with their twins
+    afterwards (a fuzzed launch that faulted would leave a sticky error)."""
+    from libjxl_tpu_torch.tools import fuzz
+
+    stats = {}
+    assert fuzz.run(target, iters=25, seed=1234, device=cuda,
+                    stats=stats) == 0
+    assert stats["inputs"] == 25
+    if target == "encode":
+        assert stats["reached_kernel"] > 0
+    test_render_tail_kernel_matches_plain(cuda, 2, True, (40, 136))
+
+
+@pytest.mark.cuda
+def test_conformance_check_on_card(cuda, tmp_path):
+    """A small corpus generated on the card (an e5 and an e7 photo, a
+    lossless case) passes `conformance check` on the card and on the
+    host; the card's check renders each VarDCT case with one
+    dequant_idct8 and one render_tail."""
+    import contextlib
+    import io
+
+    from libjxl_tpu_torch.extras.io import save_image
+    from libjxl_tpu_torch.tools import conformance
+
+    for name, (h, w, seed) in {"e5": (256, 320, 20), "e7": (192, 224, 21),
+                               "ll": (64, 80, 22)}.items():
+        save_image(tmp_path / f"{name}.ppm", _photo(h, w, seed))
+    for name, extra in (("e5", ["-e", "5"]), ("e7", ["-e", "7", "-d", "2"]),
+                        ("ll", ["--lossless"])):
+        assert conformance.main(["generate", str(tmp_path / f"{name}.ppm"),
+                                 "--out", str(tmp_path / "corpus"),
+                                 *extra]) == 0
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        rc, n = _launched(conformance.main,
+                          ["check", str(tmp_path / "corpus"), "-v"])
+    assert rc == 0 and "3/3 cases pass" in out.getvalue()
+    assert n == {"dequant_idct8": 2, "render_tail": 2}
+    rc, n = _launched(conformance.main, ["check", str(tmp_path / "corpus"),
+                                         "--host"])
+    assert rc == 0 and n == {}
