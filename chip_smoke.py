@@ -144,7 +144,21 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    decode with cjxl's arguments), cjpegli and the encode_oneshot example;
    butteraugli_main and ssimulacra2_main of a 512x512 .jxl against its
    source; rd_measure of a 64x64 .jxl where the system libjxl is present;
-14. holds every probe kernel (the TPU gather probes S1-S7,
+14. drives the block-layout decode on the card, each route counted:
+   entry.entry()'s step on one 256x256 group (one dequant_idct8) against
+   its twin; the first 2048x2048 e3 stream's host-decoded coefficients
+   reshaped to contiguous blocks, through kernels.decode_pixels_hybrid
+   (one dequant_idct8; its XYB within K1_TOL of pipeline.decode_xyb) and
+   kernels.decode_render_blocks (one dequant_idct8 and one render_tail,
+   equal to pipeline.decode_render_image of the same image-layout
+   inputs; both kernels on the route's own inputs against their twins),
+   each timed by CUDA events beside the image-layout call, the layout
+   copy alone and the twin on the card; sharding.build_sharded_decode on
+   a (batch 2, rows 2) mesh of 4 entries at 2 x 2048x2048 with per-tile
+   CfL maps (one dequant_idct8 a shard) against the unsharded route and a
+   whole-image Gaborish (equal), and the dry run's block-layout step
+   (parallel/dryrun.dryrun_codec_step) on that mesh;
+15. holds every probe kernel (the TPU gather probes S1-S7,
    libjxl_tpu_torch/probes) against its twin, exactly, then drives the
    probes with the counters reset just before: every S1-S5 form timed
    at its TPU probe's step count (ns per lane-step, the marginal cost
@@ -154,7 +168,8 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    cost a step and fixed cost, the tape fill, place's pieces).
 
 It prints the phase seconds, a JSON line of the encode, streaming,
-strip, heuristics, sharded, tools and conformance+fuzz records, a JSON
+strip, heuristics, sharded, tools, conformance+fuzz and block-layout
+records, a JSON
 line of the conformance+fuzz record alone, the rates (render-only, pipelined
 end-to-end, host-entropy and device-entropy end-to-end MP/s, with the
 device-entropy stages) with the card's name, a line a probe form and the
@@ -1983,9 +1998,10 @@ def peak_gb(fn, devices):
 
 
 def check_shard_kernels(spy):
-    """dequant_idct8 and render_tail on one shard's own inputs (`spy`'s
-    call) against their twins, timed beside them; the records' "sharded"
-    entries without launches."""
+    """dequant_idct8 and render_tail on one call's own inputs (`spy`'s
+    call: a shard's, or a route's) against their twins, timed beside
+    them; the records' "sharded" entries without launches (u8 steps
+    where the call wrote u8)."""
     import torch
 
     from libjxl_tpu_torch.ops import kernels, pipeline
@@ -2017,13 +2033,15 @@ def check_shard_kernels(spy):
     check(torch.allclose(got, ref, **tail_tol(iters)), "a shard's "
           f"render_tail (XYB) disagrees with its twin: max abs err {k2_err}")
     del got, ref
-    got = kernels.render_tail(*t_args, **t_kw)
-    ref = pipeline.render_tail_plain(*t_args, **t_kw)
-    torch.cuda.synchronize()
-    steps = int((got.int() - ref.int()).abs().max())
-    check(steps <= U8_BOUND, f"a shard's render_tail (u8) is {steps} steps "
-          "from its twin")
-    del got, ref
+    steps = None
+    if t_kw.get("out") == "u8srgb":
+        got = kernels.render_tail(*t_args, **t_kw)
+        ref = pipeline.render_tail_plain(*t_args, **t_kw)
+        torch.cuda.synchronize()
+        steps = int((got.int() - ref.int()).abs().max())
+        check(steps <= U8_BOUND, f"a shard's render_tail (u8) is {steps} "
+              "steps from its twin")
+        del got, ref
     k2 = {"shard": "x".join(map(str, comp.shape[-2:][::-1])),
           "max_abs_err": k2_err, "u8_max_steps": steps,
           "ms_per_shard": cuda_ms(lambda: kernels.render_tail(*t_args,
@@ -2047,8 +2065,7 @@ def drive_builders(devices, dev):
     from libjxl_tpu_torch.ops import kernels, pipeline
     from libjxl_tpu_torch.ops.staging import to_device
     from libjxl_tpu_torch.parallel import sharding
-    from libjxl_tpu_torch.render.pipeline import (_sad_mul_map,
-                                                  gaborish_kernel)
+    from libjxl_tpu_torch.render.pipeline import _sad_mul_map
     from libjxl_tpu_torch.vardct.quant_weights import DequantMatrices
 
     mesh = sharding.make_mesh(devices, batch=2)
@@ -2077,8 +2094,7 @@ def drive_builders(devices, dev):
     launches = nonzero_counts()
     check(launches == SHARD_LAUNCHES, f"build_sharded_decode_full "
           f"launches {launches}")
-    gab = to_device(np.stack([gaborish_kernel(*sharding.GAB_DEFAULT[c])
-                              for c in range(3)]).astype(np.float32), dev)
+    gab = to_device(sharding.GAB_KERNELS, dev)
 
     def unsharded():
         xyb = kernels.dequant_idct8(*args[:6], torch.full(
@@ -2846,6 +2862,258 @@ def drive_conformance_fuzz(e5, batch, dev, smi):
     return total, rec
 
 
+# The block-layout decode (drive_block_layout): the entry point's step,
+# the routes kernels.decode_pixels_hybrid and decode_render_blocks on a
+# real stream's coefficients reshaped to blocks, and the block-layout
+# sharded builder with per-tile CfL maps, each row shard WHOLE 64-px
+# tiles (the JAX builder splits the maps over the row shards as it
+# splits the block rows, so only then does sharded equal unsharded)
+BLOCK_LAUNCHES = {"dequant_idct8": 1}
+BLOCK_SHARD_LAUNCHES = {"dequant_idct8": SHARDS}
+BLOCK_SEED = 1200
+
+
+def hold_block_k1(route_out, blocks, args):
+    """decode_pixels_hybrid's K1 on the card against the block-layout
+    twin: the XYB that dequant_idct8 gives the route's contiguous
+    image-layout copy against pipeline.decode_xyb of the blocks (K1_TOL),
+    and the route's linear RGB equal to that XYB's colour transform.
+    Returns the max abs error of the XYB."""
+    import torch
+
+    from libjxl_tpu_torch.ops import kernels, pipeline
+
+    qf, dc, ytox, ytob, dm, igs, xdm, bdm = args
+    qimg = pipeline.blocks_to_image(blocks).contiguous()
+    xyb = kernels.dequant_idct8(qimg, qf, dc, ytox, ytob, dm,
+                                torch.as_tensor(igs, device=qimg.device)
+                                .reshape(-1).float(), xdm, bdm)
+    ref = pipeline.decode_xyb(blocks, *args)
+    torch.cuda.synchronize()
+    err = max_err(xyb, ref)
+    check(torch.allclose(xyb, ref, **K1_TOL), "a block-layout route's "
+          f"dequant_idct8 disagrees with decode_xyb: max abs err {err}")
+    check(torch.equal(route_out, pipeline.xyb_to_rgb(xyb)),
+          "decode_pixels_hybrid is not its K1's XYB, colour-converted")
+    return err
+
+
+def drive_block_layout(stream, dev, smi):
+    """The block-layout decode on the card, each route driven with the
+    counters reset just before and read just after: entry.entry()'s step
+    (one 256^2 group, 1 dequant_idct8) against its twin; the first 2048^2
+    e3 stream's host-decoded coefficients reshaped to contiguous blocks,
+    through decode_pixels_hybrid (1 dequant_idct8, its XYB within K1_TOL
+    of pipeline.decode_xyb) and decode_render_blocks (1 dequant_idct8 + 1
+    render_tail, equal to pipeline.decode_render_image of the same
+    image-layout inputs, both kernels on the route's own inputs against
+    their twins); each timed by CUDA events beside the image-layout call
+    of the same data, the layout copy alone, and the twin on the card;
+    build_sharded_decode on a (batch 2, rows 2) mesh of SHARDS entries at
+    2 x 2048^2 (4 dequant_idct8) against the unsharded route plus a
+    whole-image Gaborish, and the dry run's block-layout step
+    (dryrun_codec_step) on the same mesh. Returns ({kernel: its
+    "block_layout" record}, the phase's record)."""
+    import torch
+
+    from libjxl_tpu_torch import entry
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+    from libjxl_tpu_torch.ops import kernels, pipeline
+    from libjxl_tpu_torch.ops.staging import f32, to_device
+    from libjxl_tpu_torch.parallel import dryrun
+
+    rec = {}
+    with torch.inference_mode():
+        # entry(): the JAX package's flagship step on one 256^2 group
+        fn, args = entry.entry("cuda")
+        reset_launch_counts()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        launches = nonzero_counts()
+        check(launches == BLOCK_LAUNCHES, f"entry() launches {launches}")
+        step = (1024.0, 1.0, 1.0)
+        err = hold_block_k1(out, args[0], (*args[1:], *step))
+        rec["entry"] = {"launches": launches, "shape": list(out.shape),
+                        "max_abs_err": err,
+                        "ms": cuda_ms(lambda: fn(*args), 10),
+                        "plain_ms": cuda_ms(lambda: pipeline.decode_pixels(
+                            *args, *step), 3)}
+
+        # a real stream's coefficients in the block layout
+        sr = dryrun.StreamRender.of(stream).on(dev)
+        lf, igs, xdm, bdm, gab, chs = sr.params
+        qimg, qf, dc, ytox, ytob, dm, ispx, sad = sr.args
+        blocks = pipeline.image_to_blocks(qimg).contiguous()
+        k1_args = (qf, dc, ytox, ytob, dm, igs, xdm, bdm)
+        h, w = qimg.shape[-2:]
+        npx = h * w
+
+        reset_launch_counts()
+        out = kernels.decode_pixels_hybrid(blocks, *k1_args)
+        torch.cuda.synchronize()
+        launches = nonzero_counts()
+        check(launches == BLOCK_LAUNCHES,
+              f"decode_pixels_hybrid launches {launches}")
+        err = hold_block_k1(out, blocks, k1_args)
+        igs_t = torch.full((1,), igs, device=dev)
+
+        def image_layout():
+            return pipeline.xyb_to_rgb(kernels.dequant_idct8(
+                qimg, qf, dc, ytox, ytob, dm, igs_t, xdm, bdm))
+
+        check(torch.equal(out, image_layout()), "decode_pixels_hybrid "
+              "differs from the image-layout K1 + colour transform")
+        k1_bound = bound(tensor_bytes(qimg, qf, dc, ytox, ytob, dm, igs_t)
+                         + 4 * qimg.numel(), K1_OPS * qimg.numel())
+        hybrid = {
+            "launches": launches, "max_abs_err": err,
+            "ms": cuda_ms(lambda: kernels.decode_pixels_hybrid(
+                blocks, *k1_args), 10),
+            "image_layout_ms": cuda_ms(image_layout, 10),
+            "k1_ms": cuda_ms(lambda: kernels.dequant_idct8(
+                qimg, qf, dc, ytox, ytob, dm, igs_t, xdm, bdm), 10),
+            "copy_ms": cuda_ms(lambda: pipeline.blocks_to_image(
+                blocks).contiguous(), 10),
+            "copy_bytes": 2 * tensor_bytes(blocks),
+            "plain_ms": cuda_ms(lambda: pipeline.decode_pixels(
+                blocks, *k1_args), 3),
+            **k1_bound}
+        del out
+
+        gab = to_device(gab, dev)
+        tail = (gab, ispx, sad, chs, int(lf.epf_iters))
+        scales = (f32(lf.epf_pass0_sigma_scale),
+                  f32(lf.epf_pass2_sigma_scale))
+        with KernelSpy(keep=0) as spy:
+            reset_launch_counts()
+            out = kernels.decode_render_blocks(blocks, *k1_args, *tail,
+                                               True, *scales)
+            torch.cuda.synchronize()
+            launches = nonzero_counts()
+        check(launches == RENDER_LAUNCHES,
+              f"decode_render_blocks launches {launches}")
+        sigma = sr.sigma
+
+        def image_render():
+            return pipeline.decode_render_image(
+                qimg, qf, dc, ytox, ytob, dm, igs, xdm, bdm, gab, sigma,
+                sad, chs, int(lf.epf_iters), True, *scales)
+
+        equal = bool(torch.equal(out, image_render()))
+        check(equal, "decode_render_blocks differs from the image-layout "
+              "render of the same inputs")
+        spied = check_shard_kernels(spy)
+        del spy, out
+        render = {
+            "launches": launches, "equal_to_image_layout": equal,
+            "epf_iters": int(lf.epf_iters), "gaborish": bool(lf.gab),
+            "ms": cuda_ms(lambda: kernels.decode_render_blocks(
+                blocks, *k1_args, *tail, True, *scales), 10),
+            "image_layout_ms": cuda_ms(image_render, 10),
+            "plain_ms": cuda_ms(lambda: pipeline.decode_render(
+                blocks, *k1_args, *tail, True, *scales), 3),
+            "kernels": spied}
+        del sr, blocks, qimg
+    rec["stream"] = f"{h}x{w} d1/e3 (the first batch stream)"
+    rec["hybrid"], rec["render"] = hybrid, render
+
+    rec["sharded"] = drive_block_sharded(dev)
+    log(f"phase block layout: entry() {rec['entry']['ms']:.4f} ms (plain "
+        f"{rec['entry']['plain_ms']:.4f}); on {rec['stream']}: "
+        f"decode_pixels_hybrid {hybrid['ms']:.4f} ms (its layout copy "
+        f"{hybrid['copy_ms']:.4f} ms, K1 {hybrid['k1_ms']:.4f} ms; the "
+        f"image-layout call {hybrid['image_layout_ms']:.4f} ms; plain "
+        f"{hybrid['plain_ms']:.4f} ms; K1 bound {hybrid['bound_ms']:.4f} "
+        f"ms), decode_render_blocks {render['ms']:.4f} ms (image layout "
+        f"{render['image_layout_ms']:.4f} ms, equal; plain "
+        f"{render['plain_ms']:.4f} ms); sharded {rec['sharded']['ms']:.4f}"
+        f" ms vs unsharded {rec['sharded']['unsharded_ms']:.4f} ms "
+        f"(equal); "
+        f"CUDA events; {smi}")
+    k1 = {"launches": sum(r["launches"].get("dequant_idct8", 0)
+                          for r in (rec["entry"], hybrid, render,
+                                    rec["sharded"],
+                                    rec["sharded"]["dryrun_step"])),
+          "ms": hybrid["k1_ms"], "route_ms": hybrid["ms"],
+          "copy_ms": hybrid["copy_ms"],
+          "image_layout_ms": hybrid["image_layout_ms"],
+          "plain_ms": hybrid["plain_ms"],
+          "max_abs_err": max(rec["entry"]["max_abs_err"],
+                             hybrid["max_abs_err"],
+                             spied["dequant_idct8"]["max_abs_err"]),
+          **{k: hybrid[k] for k in ("bound_ms", "bound_by", "library_ms")}}
+    k2 = {"launches": render["launches"]["render_tail"],
+          "ms": spied["render_tail"]["ms_per_shard"],
+          "route_ms": render["ms"],
+          "image_layout_ms": render["image_layout_ms"],
+          **{k: spied["render_tail"][k] for k in (
+              "plain_ms", "max_abs_err", "bound_ms", "bound_by",
+              "library_ms")}}
+    return {"dequant_idct8": k1, "render_tail": k2}, rec
+
+
+def drive_block_sharded(dev):
+    """build_sharded_decode on a (batch 2, rows 2) mesh of SHARDS entries
+    (the cards in turn) at 2 x SIZE^2 with nonzero per-tile CfL maps,
+    counted, against the unsharded route on the card
+    (decode_pixels_hybrid of the batch, then a whole-image Gaborish):
+    equal (whole tiles a shard, the same kernel and the same blur on both
+    sides); then dryrun_codec_step on the same mesh
+    (its 4 shard launches and the unsharded reference's one)."""
+    import torch
+
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+    from libjxl_tpu_torch.ops import kernels, pipeline
+    from libjxl_tpu_torch.ops.staging import to_device
+    from libjxl_tpu_torch.parallel import dryrun, sharding
+    from libjxl_tpu_torch.vardct.quant_weights import library_tables
+
+    mesh = sharding.make_mesh(dryrun.mesh_devices(SHARDS, "cuda"), batch=2)
+    rng = np.random.default_rng(BLOCK_SEED)
+    b, nby = 2, SIZE // 8
+    nty = nby // 8
+    dm = library_tables()[0][0]
+    shape = (b, 3, nby, nby, 8, 8)
+    args = to_device((
+        (rng.integers(-3, 4, shape, dtype=np.int32)
+         * (rng.random(shape, dtype=np.float32) < 0.1)).astype(np.int32),
+        rng.integers(32, 128, (b, nby, nby)).astype(np.int32),
+        rng.normal(0, 0.2, (b, 3, nby, nby)).astype(np.float32),
+        rng.integers(-10, 10, (b, nty, nty)).astype(np.int32),
+        rng.integers(-45, -30, (b, nty, nty)).astype(np.int32), dm), dev)
+    run = sharding.build_sharded_decode(mesh)
+    reset_launch_counts()
+    got = run(*args)
+    torch.cuda.synchronize()
+    launches = nonzero_counts()
+    check(launches == BLOCK_SHARD_LAUNCHES,
+          f"build_sharded_decode launches {launches}")
+
+    def unsharded():
+        with torch.inference_mode():
+            rgb = kernels.decode_pixels_hybrid(*args, 1024.0)
+            return pipeline.gaborish(rgb, sharding.GAB_KERNELS)
+
+    ref = unsharded()
+    torch.cuda.synchronize()
+    err = max_err(got, ref)
+    check(torch.equal(got, ref), "build_sharded_decode differs from the "
+          f"unsharded route: max abs err {err}")
+    rec = {"mesh": repr(mesh), "image": f"2 x {SIZE}^2",
+           "launches": launches, "max_abs_err": err,
+           "ms": cuda_ms(lambda: run(*args), 3),
+           "unsharded_ms": cuda_ms(unsharded, 3)}
+    del got, ref, args
+    reset_launch_counts()
+    step = dryrun.dryrun_codec_step(mesh, np.random.default_rng(1))
+    torch.cuda.synchronize()
+    launches = nonzero_counts()
+    check(launches == {"dequant_idct8": SHARDS + 1},
+          f"the dry run's block-layout step launches {launches}")
+    rec["dryrun_step"] = {**step, "launches": launches}
+    return rec
+
+
 def main():
     import torch
 
@@ -3067,6 +3335,14 @@ def main():
         rec["conformance_fuzz"] = {"launches": conf.get(rec["name"], 0)}
     paths["conformance_fuzz"]["phase_s"] = time.perf_counter() - t
     log(f"phase conformance+fuzz: {time.perf_counter() - t:.2f} s")
+
+    # the block-layout decode: entry(), its two routes and the
+    # block-layout sharded builder, counted
+    t = time.perf_counter()
+    block, paths["block_layout"] = drive_block_layout(main_s[0], dev, smi)
+    for rec in records[:2]:
+        rec["block_layout"] = block[rec["name"]]
+    log(f"phase block layout: {time.perf_counter() - t:.2f} s")
 
     # the TPU gather probes S1-S7 and the device-entropy profile
     t = time.perf_counter()

@@ -26,6 +26,13 @@ ans_decode (ops/csrc/ans_decode.cu) replaces TPU kernel K3,
   CTAs of a few lanes of one image (LaneTensors.cta_first) holding that
   image's tables, the lanes' row files and cp.async-fed stream rings in
   shared memory. Plain twin: ops/ans_kernel.ans_decode_plain.
+
+decode_pixels_hybrid and decode_render_blocks are the block-layout
+routes, the counterparts of pallas_kernels.py decode_pixels_hybrid and
+pipeline.py decode_render: the coefficients i32[..., 3, nby, nbx, 8, 8]
+become one contiguous image-layout copy, which one dequant_idct8 launch
+reads; decode_render_blocks then launches render_tail once. Their plain
+twins are pipeline.decode_pixels and pipeline.decode_render.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from ..base.device import launch_counter
 from . import pipeline
 from .ans_kernel import NZ_WIDTH, ZD_WIDTH, LaneTensors, ans_decode_plain
 from .build import load as load_kernels
+from .staging import per_block
 
 DEQUANT_IDCT8_LAUNCHES = launch_counter("dequant_idct8")
 RENDER_TAIL_LAUNCHES = launch_counter("render_tail")
@@ -134,6 +142,92 @@ def dequant_idct8(qimg, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
         bsz, h, w, nty, ntx, out.data_ptr(), _stream(dev), dev.index))
     DEQUANT_IDCT8_LAUNCHES.add()
     return out[0] if single else out
+
+
+def _check_blocks(name, qcoeffs) -> None:
+    _require(qcoeffs.dim() >= 5 and qcoeffs.shape[-5] == 3
+             and tuple(qcoeffs.shape[-2:]) == (8, 8),
+             f"{name}: qcoeffs shape {tuple(qcoeffs.shape)}, not block "
+             "layout [..., 3, nby, nbx, 8, 8]")
+
+
+def _image_args(qcoeffs, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
+                x_dm_mult, b_dm_mult):
+    """dequant_idct8's arguments for block-layout coefficients: one
+    contiguous image-layout copy of them, the global scale as one f32 an
+    image."""
+    igs = torch.as_tensor(inv_global_scale, dtype=torch.float32,
+                          device=qcoeffs.device).reshape(-1)
+    return (pipeline.blocks_to_image(qcoeffs).contiguous(), qf, dc, ytox_map,
+            ytob_map, dm, igs.expand(qf[..., 0, 0].numel()).contiguous(),
+            x_dm_mult, b_dm_mult)
+
+
+def decode_pixels_hybrid(qcoeffs, qf, dc, ytox_map, ytob_map, dm,
+                         inv_global_scale, x_dm_mult=1.0, b_dm_mult=1.0,
+                         color_factor=pipeline.COLOR_FACTOR,
+                         base_x=pipeline.BASE_X, base_b=pipeline.BASE_B):
+    """The VarDCT decode of block-layout coefficients to linear RGB
+    f32[..., 3, nby*8, nbx*8]: the contract of pipeline.decode_pixels
+    (its plain twin, which CPU tensors get), for one image or a batch.
+
+    On CUDA: one contiguous image-layout copy of qcoeffs, one
+    dequant_idct8 launch (K1 with the DC insert and the IDCT8), then
+    pipeline.xyb_to_rgb. The tensors follow dequant_idct8's contract, in
+    the block layout; inv_global_scale is one f32 or one an image.
+    color_factor, base_x and base_b must be the kernel's constants on
+    either device (ValueError)."""
+    _check_blocks("decode_pixels_hybrid", qcoeffs)
+    _require((color_factor, base_x, base_b) == (
+        pipeline.COLOR_FACTOR, pipeline.BASE_X, pipeline.BASE_B),
+        f"decode_pixels_hybrid: dequant_idct8 fixes color_factor "
+        f"{pipeline.COLOR_FACTOR}, base_x {pipeline.BASE_X} and base_b "
+        f"{pipeline.BASE_B}; got {color_factor}, {base_x}, {base_b}")
+    args = (qcoeffs, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
+            x_dm_mult, b_dm_mult)
+    if qcoeffs.device.type == "cpu":
+        return pipeline.decode_pixels(*args)
+    return pipeline.xyb_to_rgb(dequant_idct8(*_image_args(*args)))
+
+
+def decode_render_blocks(qcoeffs, qf, dc, ytox_map, ytob_map, dm,
+                         inv_global_scale, x_dm_mult, b_dm_mult, gab_kernels,
+                         inv_sigma_px, sad_mul, channel_scale, epf_iters,
+                         to_rgb=True, pass0_sigma_scale=0.9,
+                         pass2_sigma_scale=6.5):
+    """The full decode of block-layout coefficients: Gaborish (unless
+    gab_kernels is None) and the EPF passes of epf_iters on the XYB, then
+    linear RGB (to_rgb) or XYB, f32[..., 3, H, W]. The contract of
+    pipeline.decode_render (its plain twin, which CPU tensors get).
+
+    On CUDA: pipeline.decode_render_image of one contiguous image-layout
+    copy of qcoeffs (one dequant_idct8 launch, one render_tail launch
+    with XYB out, pipeline.xyb_to_rgb when to_rgb), or, where gab_kernels
+    is None and epf_iters is 0, the dequant_idct8 launch alone.
+    gab_kernels f32[3, 3, 3] and sad_mul f32[H, W] on the coefficients'
+    device. render_tail reads sigma per 8x8 block, so with EPF an
+    inv_sigma_px f32[..., H, W] that is not constant on every block raises
+    ValueError on either device."""
+    _require(epf_iters in pipeline.EPF_CHAINS,
+             f"decode_render_blocks: epf_iters {epf_iters}")
+    _check_blocks("decode_render_blocks", qcoeffs)
+    sigma = per_block(inv_sigma_px, "decode_render_blocks") \
+        if epf_iters else None
+    args = (qcoeffs, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
+            x_dm_mult, b_dm_mult)
+    if qcoeffs.device.type == "cpu":
+        return pipeline.decode_render(
+            *args, gab_kernels, inv_sigma_px, sad_mul, channel_scale,
+            epf_iters, to_rgb, pass0_sigma_scale, pass2_sigma_scale)
+    image_args = _image_args(*args)
+    if gab_kernels is None and not epf_iters:
+        xyb = dequant_idct8(*image_args)
+        return pipeline.xyb_to_rgb(xyb) if to_rgb else xyb
+    return pipeline.decode_render_image(
+        *image_args, gab_kernels,
+        None if sigma is None else sigma.contiguous(), sad_mul,
+        channel_scale, epf_iters, bool(to_rgb), pass0_sigma_scale,
+        pass2_sigma_scale)
 
 
 def _launch_tail(name, xyb, gab_kernels, inv_sigma, sad_mul,

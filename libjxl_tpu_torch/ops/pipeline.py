@@ -8,7 +8,10 @@ Coefficients stay in the bitstream's transposed per-block layout.
 
 Some are the plain twins of the hand-written kernels in ops/kernels.py
 (decode_xyb_image for dequant_idct8, render_tail_plain for render_tail,
-_epf_pass for epf_pass), and they are what the CPU runs.
+_epf_pass for epf_pass; decode_pixels and decode_render, the decode on
+block-layout coefficients i32[..., 3, nby, nbx, 8, 8], for the routes
+decode_pixels_hybrid and decode_render_blocks), and they are what the
+CPU runs.
 decode_render_image and decode_render_subsampled call the kernel
 wrappers, which take the kernel on a CUDA tensor and these plain forms on
 a CPU tensor. The other block strategies' inverse transforms
@@ -280,11 +283,20 @@ def render_tail_plain(xyb, gab_kernels, inv_sigma, sad_mul, channel_scale,
     ceil(W/8)]; sad_mul f32[H, W]. Plain twin of kernels.render_tail."""
     h, w = xyb.shape[-2:]
     isp = _repeat2(inv_sigma, 8)[..., :h, :w] if epf_iters else None
+    xyb = _filter_chain(xyb, gab_kernels, isp, sad_mul, channel_scale,
+                        epf_iters, pass0_sigma_scale, pass2_sigma_scale)
+    return srgb_u8(xyb_to_rgb(xyb)) if out == "u8srgb" else xyb
+
+
+def _filter_chain(xyb, gab_kernels, inv_sigma_px, sad_mul, channel_scale,
+                  epf_iters, pass0_sigma_scale, pass2_sigma_scale):
+    """Gaborish (unless gab_kernels is None), then the EPF passes of
+    epf_iters, with the inverse sigma per pixel."""
     for _, stage in _tail_stages(
             gab_kernels, EPF_CHAINS[epf_iters], channel_scale,
             _sigma_scales(pass0_sigma_scale, pass2_sigma_scale)):
-        xyb = stage(xyb, isp, sad_mul)
-    return srgb_u8(xyb_to_rgb(xyb)) if out == "u8srgb" else xyb
+        xyb = stage(xyb, inv_sigma_px, sad_mul)
+    return xyb
 
 
 def _tile_index(origin: int, size: int, n: int, depth: int | None,
@@ -656,14 +668,15 @@ def srgb2lin(srgb: torch.Tensor) -> torch.Tensor:
 
 
 def blocks_to_image(blocks: torch.Tensor) -> torch.Tensor:
-    """f32[c, nby, nbx, 8, 8] -> f32[c, nby*8, nbx*8]."""
-    c, nby, nbx, _, _ = blocks.shape
-    return blocks.permute(0, 1, 3, 2, 4).reshape(c, nby * 8, nbx * 8)
+    """[..., c, nby, nbx, 8, 8] -> [..., c, nby*8, nbx*8] (a copy)."""
+    *lead, c, nby, nbx, _, _ = blocks.shape
+    return blocks.transpose(-3, -2).reshape(*lead, c, nby * 8, nbx * 8)
 
 
 def image_to_blocks(image: torch.Tensor) -> torch.Tensor:
-    c, h, w = image.shape
-    return image.reshape(c, h // 8, 8, w // 8, 8).permute(0, 1, 3, 2, 4)
+    """[..., c, H, W] -> [..., c, H/8, W/8, 8, 8] (a view)."""
+    *lead, c, h, w = image.shape
+    return image.reshape(*lead, c, h // 8, 8, w // 8, 8).transpose(-3, -2)
 
 
 def dct8_blocks(blocks: torch.Tensor) -> torch.Tensor:
@@ -697,8 +710,71 @@ def rgb_to_xyb(rgb: torch.Tensor) -> torch.Tensor:
 
 def _tile_to_blocks(tile_map: torch.Tensor, nby: int,
                     nbx: int) -> torch.Tensor:
-    """Expand a per-64px-tile map to per-block values."""
-    return _repeat2(tile_map, COLOR_TILE_BLOCKS)[:nby, :nbx]
+    """Expand a per-64px-tile map [..., nty, ntx] to per-block values,
+    cropped (never wrapped) to [..., nby, nbx]."""
+    return _repeat2(tile_map, COLOR_TILE_BLOCKS)[..., :nby, :nbx]
+
+
+def decode_xyb(qcoeffs, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
+               x_dm_mult, b_dm_mult, color_factor=COLOR_FACTOR,
+               base_x=BASE_X, base_b=BASE_B):
+    """The VarDCT decode on block-layout coefficients to XYB, the JAX
+    package's decode_xyb (DequantBlock, dec_group.cc:96-165, then
+    TransformToPixels): dequant + AdjustQuantBias + CfL in the block
+    layout, the DC insert, the batched 8x8 IDCT.
+
+    qcoeffs: int[..., 3, nby, nbx, 8, 8] (the bitstream's transposed
+    per-block layout); qf: i32[..., nby, nbx]; dc: f32[..., 3, nby, nbx],
+    already dequantized; ytox/ytob_map: i32[..., nty, ntx] per 64-px tile;
+    dm: f32[3, 8, 8]; inv_global_scale: f32, or one per image. Returns
+    f32[..., 3, nby*8, nbx*8]. Plain twin of the dequant_idct8 launch in
+    kernels.decode_pixels_hybrid and kernels.decode_render_blocks."""
+    nby, nbx = qf.shape[-2:]
+    dev = qcoeffs.device
+    igs = torch.as_tensor(inv_global_scale, dtype=torch.float32, device=dev)
+    scaled = (igs[..., None, None] / qf.to(torch.float32))[..., None, None]
+    x_cc = (base_x + _tile_to_blocks(ytox_map, nby, nbx).to(torch.float32)
+            / color_factor)[..., None, None]
+    b_cc = (base_b + _tile_to_blocks(ytob_map, nby, nbx).to(torch.float32)
+            / color_factor)[..., None, None]
+    dm = torch.as_tensor(dm, dtype=torch.float32, device=dev)
+    qx, qy, qb = qcoeffs.unbind(-5)
+    dq_y = adjust_quant_bias(qy, 1) * dm[1] * scaled
+    dq_x = adjust_quant_bias(qx, 0) * dm[0] * scaled * float(x_dm_mult) \
+        + x_cc * dq_y
+    dq_b = adjust_quant_bias(qb, 2) * dm[2] * scaled * float(b_dm_mult) \
+        + b_cc * dq_y
+    coeffs = torch.stack([dq_x, dq_y, dq_b], dim=-5)
+    coeffs[..., 0, 0] = dc
+    return blocks_to_image(idct8_blocks(coeffs))
+
+
+def decode_pixels(qcoeffs, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
+                  x_dm_mult, b_dm_mult, color_factor=COLOR_FACTOR,
+                  base_x=BASE_X, base_b=BASE_B):
+    """decode_xyb, then XYB -> linear RGB f32[..., 3, nby*8, nbx*8]: the
+    JAX package's decode_pixels, the path __graft_entry__.entry() runs.
+    Plain twin of kernels.decode_pixels_hybrid."""
+    return xyb_to_rgb(decode_xyb(qcoeffs, qf, dc, ytox_map, ytob_map, dm,
+                                 inv_global_scale, x_dm_mult, b_dm_mult,
+                                 color_factor, base_x, base_b))
+
+
+def decode_render(qcoeffs, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
+                  x_dm_mult, b_dm_mult, gab_kernels, inv_sigma_px, sad_mul,
+                  channel_scale, epf_iters, to_rgb=True,
+                  pass0_sigma_scale=0.9, pass2_sigma_scale=6.5):
+    """The full decode on block-layout coefficients, the JAX package's
+    decode_render: decode_xyb -> Gaborish (unless gab_kernels is None)
+    -> the EPF passes of epf_iters -> linear RGB (to_rgb) or XYB.
+    inv_sigma_px: f32[..., H, W] per pixel; sad_mul: f32[H, W]. Plain
+    twin of kernels.decode_render_blocks."""
+    xyb = decode_xyb(qcoeffs, qf, dc, ytox_map, ytob_map, dm,
+                     inv_global_scale, x_dm_mult, b_dm_mult)
+    xyb = _filter_chain(xyb, gab_kernels, inv_sigma_px, sad_mul,
+                        channel_scale, epf_iters, pass0_sigma_scale,
+                        pass2_sigma_scale)
+    return xyb_to_rgb(xyb) if to_rgb else xyb
 
 
 def _fma(a: float, b: torch.Tensor, c: torch.Tensor) -> torch.Tensor:

@@ -5,7 +5,9 @@ f32, and the upload of whatever holds them.
 api/tpu_codec (the batch, single-image and encode paths),
 vardct/low_memory (the device strips) and vardct/streaming (the chunk
 step) all stage through these, so the three paths hand the device the
-same tensors.
+same tensors. per_block turns the JAX forms' per-pixel EPF sigma into
+the per-block grid render_tail reads (parallel/sharding's builders,
+ops/kernels.decode_render_blocks).
 """
 
 from __future__ import annotations
@@ -65,3 +67,16 @@ def to_device(obj, dev):
     if isinstance(obj, dict):
         return {k: to_device(v, dev) for k, v in obj.items()}
     return obj
+
+
+def per_block(inv_sigma_px, what: str) -> torch.Tensor:
+    """The per-pixel EPF inverse sigma f32[..., H, W] (H, W multiples of
+    8; a numpy array or a tensor) as render_tail reads it, per block:
+    raises unless it is constant on every 8x8 block."""
+    px = torch.as_tensor(inv_sigma_px)
+    blocks = px[..., ::8, ::8]
+    if not torch.equal(blocks.repeat_interleave(8, -2)
+                       .repeat_interleave(8, -1), px):
+        raise ValueError(f"{what}: inv_sigma_px is not constant on each "
+                         "8x8 block (render_tail reads sigma per block)")
+    return blocks

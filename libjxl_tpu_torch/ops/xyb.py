@@ -1,7 +1,8 @@
 """XYB (opsin) color transform, forward and inverse.
 
 Mirrors enc_xyb.cc:43-106 (LinearRGBToXYB) and dec_xyb-inl.h:37-85
-(XybToRgb), in NumPy.
+(XybToRgb), in NumPy, and in torch through make_torch_xyb (the JAX
+package's make_jax_xyb).
 """
 
 from __future__ import annotations
@@ -55,6 +56,16 @@ def xyb_to_linear_rgb(xyb: np.ndarray) -> np.ndarray:
     gb = b + cb
     mixed = np.stack([gr ** 3 - bias, gg ** 3 - bias, gb ** 3 - bias])
     return np.einsum("ij,j...->i...", _MINV.astype(dt), mixed)
+
+
+def make_torch_xyb():
+    """Returns (to_xyb, from_xyb), torch functions over f32 (3, H, W)
+    tensors on any device: the JAX package's make_jax_xyb, which are
+    ops/pipeline's rgb_to_xyb and xyb_to_rgb (the cube root XLA's powf,
+    pipeline._powf)."""
+    from .pipeline import rgb_to_xyb, xyb_to_rgb
+
+    return rgb_to_xyb, xyb_to_rgb
 
 
 def srgb_to_linear(srgb: np.ndarray) -> np.ndarray:

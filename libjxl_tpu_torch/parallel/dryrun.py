@@ -10,9 +10,8 @@ parallel/sharding.Mesh in this process:
 
 With device="cuda" the mesh takes the cards in turn, so one card gives a
 virtual mesh of n entries on cuda:0; device="cpu" gives n entries of the
-CPU, where the kernels' plain twins run. The JAX dry run's
-build_sharded_decode step is left out (the block-layout decode it runs is
-not ported), and big_mp replaces its GRAFT_BIG_MP environment variable.
+CPU, where the kernels' plain twins run. big_mp replaces the JAX dry
+run's GRAFT_BIG_MP environment variable.
 """
 
 from __future__ import annotations
@@ -24,11 +23,13 @@ import numpy as np
 import torch
 
 from ..base.device import resolve_device
-from ..ops import pipeline
+from ..ops import kernels, pipeline
 from ..ops.staging import (block_sigma, dequant_tables, f32, gab_kernels,
                            sad_mul)
-from .sharding import (Mesh, build_sharded_decode_full, build_sharded_encode,
-                       build_sharded_decode_stream, make_mesh, synchronize)
+from ..vardct.quant_weights import library_tables
+from .sharding import (GAB_KERNELS, Mesh, _put, build_sharded_decode,
+                       build_sharded_decode_full, build_sharded_decode_stream,
+                       build_sharded_encode, make_mesh, synchronize)
 
 
 def mesh_devices(n: int, device) -> list:
@@ -199,36 +200,23 @@ def dryrun_big_image_sharded_decode(devices, device, big_mp: float) -> dict:
             "whole_s": t_single, "strip_s": times}
 
 
-def dryrun_multichip(n_devices: int, device="cuda",
-                     big_mp: float = 64.0) -> dict:
-    """Every sharded path of the port once on an n_devices mesh
-    (mesh_devices(n_devices, device), batch 2 when n_devices is even and
-    at least 4), each checked: the sharded encode and full decode (their
-    shapes), the streaming encode with the mesh (bytes equal to the
-    sequential encode's), a real 512x512 stream rendered sharded and ONE
-    big image (big_mp megapixels) strip-sharded over every entry, each
-    within 1 step of the single-device render, and the data-parallel
-    serving decode (tpu_codec.decode_batch_sharded) within 1 step of the
-    host decode. Raises on any failure; returns what it measured."""
-    from ..api.codestream import decode, encode_lossy, encode_lossy_streaming
-    from ..api.tpu_codec import decode_batch_sharded
-    from ..vardct.quant_weights import DequantMatrices
+BLOCK_DECODE_TOL = dict(rtol=1e-5, atol=1e-3)  # tests/test_tpu_pipeline.py
 
-    devices = mesh_devices(n_devices, device)
-    batch = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
-    mesh = make_mesh(devices, batch=batch)
-    rows = mesh.shape["rows"]
-    rng = np.random.default_rng(1)
+
+def dryrun_codec_step(mesh: Mesh, rng) -> dict:
+    """The JAX dry run's first two steps on `mesh` (batch = its batch
+    rows, 2 block rows a row shard, 8 block columns): the sharded encode
+    of uniform RGB (build_sharded_encode; its shapes checked), then the
+    block-layout decode of its coefficients with the Gaborish halo
+    (build_sharded_decode, zero per-block-row CfL maps), held within
+    BLOCK_DECODE_TOL to the unsharded decode on the mesh's first device:
+    kernels.decode_pixels_hybrid of the whole batch (one dequant_idct8
+    launch on a card, so the check isolates the sharding; the kernel's
+    own check is against its twin) and a whole-image Gaborish."""
+    batch, rows = mesh.devices.shape
     nby, nbx = rows * 2, 8
     h, w = nby * 8, nbx * 8
-    m = DequantMatrices()
-    dm = np.stack([m.dequant_matrix(0, c) for c in range(3)]).astype(
-        np.float32)
-    dm_inv = np.stack([m.inv_matrix(0, c) for c in range(3)]).astype(
-        np.float32)
-    rec = {"mesh": repr(mesh)}
-
-    # the encode step: RGB -> quantized coefficients + DC
+    dm, dm_inv = library_tables()[0]
     rgb = rng.uniform(0, 1, (batch, 3, h, w)).astype(np.float32)
     qf = np.full((batch, nby, nbx), 64, dtype=np.int32)
     inv_dc_mul = np.array([512.0, 64.0, 32.0], dtype=np.float32)
@@ -238,6 +226,55 @@ def dryrun_multichip(n_devices: int, device="cuda",
             or tuple(qdc.shape) != (batch, 3, nby, nbx):
         raise RuntimeError(f"sharded encode shapes {tuple(q.shape)}, "
                            f"{tuple(qdc.shape)}")
+
+    dc = qdc.to(torch.float32)
+    zeros = np.zeros((batch, nby, 1), dtype=np.int32)
+    out = build_sharded_decode(mesh, apply_gab=True)(q, qf, dc, zeros,
+                                                     zeros, dm)
+    dev = mesh.first
+    with torch.inference_mode():
+        rgb = kernels.decode_pixels_hybrid(
+            *(_put(a, dev) for a in (q, qf, dc, zeros, zeros, dm)), 1024.0)
+        ref = pipeline.gaborish(rgb, GAB_KERNELS)
+    if tuple(out.shape) != (batch, 3, h, w):
+        raise RuntimeError(f"sharded block decode: shape {tuple(out.shape)}")
+    err = float((out - ref).abs().max())
+    if not torch.allclose(out, ref, **BLOCK_DECODE_TOL):
+        raise RuntimeError(f"sharded block decode diverged from the "
+                           f"unsharded decode: max abs err {err}")
+    return {"encode_shapes": [list(q.shape), list(qdc.shape)],
+            "block_decode": {"shape": list(out.shape), "max_abs_err": err}}
+
+
+def dryrun_multichip(n_devices: int, device="cuda",
+                     big_mp: float = 64.0) -> dict:
+    """Every sharded path of the port once on an n_devices mesh
+    (mesh_devices(n_devices, device), batch 2 when n_devices is even and
+    at least 4), each checked: the sharded encode (its shapes) and the
+    block-layout decode of its output (dryrun_codec_step), the full
+    decode (its shape), the streaming encode with the mesh (bytes equal to the
+    sequential encode's), a real 512x512 stream rendered sharded and ONE
+    big image (big_mp megapixels) strip-sharded over every entry, each
+    within 1 step of the single-device render, and the data-parallel
+    serving decode (tpu_codec.decode_batch_sharded) within 1 step of the
+    host decode. Raises on any failure; returns what it measured."""
+    from ..api.codestream import decode, encode_lossy, encode_lossy_streaming
+    from ..api.tpu_codec import decode_batch_sharded
+
+    devices = mesh_devices(n_devices, device)
+    batch = 2 if n_devices % 2 == 0 and n_devices >= 4 else 1
+    mesh = make_mesh(devices, batch=batch)
+    rows = mesh.shape["rows"]
+    rng = np.random.default_rng(1)
+    nby, nbx = rows * 2, 8
+    h, w = nby * 8, nbx * 8
+    dm = library_tables()[0][0]
+    qf = np.full((batch, nby, nbx), 64, dtype=np.int32)
+    rec = {"mesh": repr(mesh)}
+
+    # the encode step, RGB -> quantized coefficients + DC, and the
+    # block-layout decode of them with the Gaborish halo exchange
+    rec["codec_step"] = dryrun_codec_step(mesh, rng)
 
     # the full filter-chain decode, one block row of halo a seam
     qimg = rng.integers(-3, 4, (batch, 3, h, w)).astype(np.int32)

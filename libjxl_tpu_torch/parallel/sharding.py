@@ -21,7 +21,17 @@ bodies and the halo bookkeeping are the same, and on several cards a halo
 moves as a peer copy (Tensor.to, which PyTorch orders after the source's
 and before the destination's current stream).
 
-The decode bodies run the port's two render kernels a shard:
+build_sharded_decode, the block-layout decode, runs one
+kernels.decode_pixels_hybrid a shard (one dequant_idct8 launch) and,
+after the exchange of one row of linear RGB with each neighbour, the
+3x3 Gaborish blur (pipeline.gaborish of the shard and its halo rows, the
+halo rows then dropped). It splits the per-tile CfL maps over "rows" as
+the JAX builder does, and each shard expands its own maps from its own
+tile 0, so it equals the unsharded decode only where every shard holds
+whole 64-px colour tiles or the maps are zero (the JAX builder's fault,
+kept).
+
+The other decode bodies run the port's two render kernels a shard:
 kernels.dequant_idct8 on the shard's own block rows, then, after the
 exchange of one block row of XYB (ROW_HALO) with each neighbour,
 kernels.render_tail on the composite. A whole block row keeps
@@ -43,10 +53,13 @@ import torch
 
 from ..base.device import resolve_device
 from ..ops import kernels, pipeline
+from ..ops.staging import per_block
 from ..render.pipeline import gaborish_kernel
 
 HALO = 3  # the JAX package's Gaborish + round-1 EPF halo (sharding.py:52)
 GAB_DEFAULT = ((0.115169525, 0.061248592),) * 3  # 1.1 * defaults
+GAB_KERNELS = np.stack([gaborish_kernel(*w) for w in GAB_DEFAULT]).astype(
+    np.float32)
 ROW_HALO = 8  # rows a decode shard takes from each neighbour: a block row
 FULL_CHANNEL_SCALE = (40.0, 5.0, 3.5)  # build_sharded_decode_full's EPF
 
@@ -173,18 +186,6 @@ def _with_halo(shards, halo: int):
     return out
 
 
-def _per_block(inv_sigma_px, what: str) -> torch.Tensor:
-    """The per-pixel EPF inverse sigma f32[..., H, W] (H, W multiples of
-    8) as render_tail reads it, per block: raises unless it is constant on
-    every 8x8 block."""
-    px = _tensor(inv_sigma_px)
-    blocks = px[..., ::8, ::8]
-    if not torch.equal(pipeline._repeat2(blocks, 8), px):
-        raise ValueError(f"{what}: inv_sigma_px is not constant on each "
-                         "8x8 block (render_tail reads sigma per block)")
-    return blocks
-
-
 def _shared_map(sad_mul, what: str) -> torch.Tensor:
     """The SAD multiplier map f32[H, W] that render_tail shares across a
     batch; a [B, H, W] map must repeat one map."""
@@ -244,6 +245,54 @@ def _gather(parts, dev, dim: int) -> torch.Tensor:
     return torch.cat([p.to(dev, non_blocking=True) for p in parts], dim=dim)
 
 
+def build_sharded_decode(mesh: Mesh, apply_gab: bool = True):
+    """The block-layout decode sharded over (batch, rows): each mesh entry
+    makes one kernels.decode_pixels_hybrid call (one dequant_idct8 launch
+    on a card) for its images and block rows, at global scale 1024 and
+    qm multipliers 1; with apply_gab, the exchange of one row of linear
+    RGB with each row neighbour (edge rows replicated at the image's top
+    and bottom) and the 3x3 Gaborish of GAB_DEFAULT (pipeline.gaborish,
+    whose symmetric pad of 1 repeats the edge column as the JAX builder's
+    edge pad does).
+
+    Returns run(qcoeffs, qf, dc, ytox, ytob, dm) on the JAX builder's
+    global inputs: qcoeffs i32[batch, 3, nby, nbx, 8, 8], qf i32[batch,
+    nby, nbx], dc f32[batch, 3, nby, nbx], ytox/ytob i32[batch, tby, tbx],
+    dm f32[3, 8, 8] replicated; batch over "batch", nby and tby over
+    "rows" (the maps split as the block rows do: see the module's note).
+    Gives linear RGB f32[batch, 3, nby*8, nbx*8] on the mesh's first
+    device."""
+    nb, nr = mesh.devices.shape
+
+    def run(qcoeffs, qf, dc, ytox, ytob, dm):
+        bl = _part(qcoeffs.shape[0], nb, "batch")
+        rl = _part(qcoeffs.shape[2], nr, "block rows")
+        tl = _part(ytox.shape[1], nr, "colour tile rows")
+        out = []
+        with torch.inference_mode():
+            for b in range(nb):
+                bs = slice(b * bl, (b + 1) * bl)
+                rgb = []
+                for r, dev in enumerate(mesh.devices[b]):
+                    rs = slice(r * rl, (r + 1) * rl)
+                    tr = slice(r * tl, (r + 1) * tl)
+                    rgb.append(kernels.decode_pixels_hybrid(
+                        _put(qcoeffs[bs, :, rs], dev),
+                        _put(qf[bs, rs], dev), _put(dc[bs, :, rs], dev),
+                        _put(ytox[bs, tr], dev), _put(ytob[bs, tr], dev),
+                        _put(dm, dev), 1024.0, 1.0, 1.0))
+                if apply_gab:
+                    rgb = [pipeline.gaborish(torch.cat([above, x, below],
+                                                       dim=-2),
+                                             GAB_KERNELS)[..., 1:-1, :]
+                           for x, (above, below) in zip(
+                               rgb, _halo_exchange_rows(rgb, 1))]
+                out.append(_gather(rgb, mesh.first, -2))
+            return torch.cat(out)
+
+    return run
+
+
 def build_sharded_encode(mesh: Mesh):
     """The sharded encode compute, RGB -> quantized coefficients + DC
     (pipeline.encode_coefficients on every image of every shard, at global
@@ -298,12 +347,10 @@ def build_sharded_decode_full(mesh: Mesh, epf_iters: int = 2):
     for the batch) or [H, W]; batch over "batch", H, nby and tby over
     "rows". Gives f32[batch, 3, H, W] on the mesh's first device."""
     nb, nr = mesh.devices.shape
-    gabk = np.stack([gaborish_kernel(*GAB_DEFAULT[c])
-                     for c in range(3)]).astype(np.float32)
 
     def run(qimg, qf, dc, ytox, ytob, dm, inv_sigma_px, sad_mul):
         bl = _part(qimg.shape[0], nb, "batch")
-        sigma = _per_block(inv_sigma_px, "build_sharded_decode_full")
+        sigma = per_block(inv_sigma_px, "build_sharded_decode_full")
         sad = _shared_map(sad_mul, "build_sharded_decode_full")
         out = []
         with torch.inference_mode():
@@ -313,7 +360,7 @@ def build_sharded_decode_full(mesh: Mesh, epf_iters: int = 2):
 
                 def tail(comp, isg, sd):
                     return kernels.render_tail(
-                        comp, _put(gabk, comp.device), isg, sd,
+                        comp, _put(GAB_KERNELS, comp.device), isg, sd,
                         FULL_CHANNEL_SCALE, epf_iters, out="xyb")
 
                 shards = _decode_rows(
@@ -358,7 +405,7 @@ def build_sharded_decode_stream(mesh: Mesh, lf, igs: float, xdm: float,
     def run(qimg, qf, dc, ytox, ytob, dm, inv_sigma_px, sad_mul):
         _part(qimg.shape[-2], len(devs), "image rows",
               8 * pipeline.COLOR_TILE_BLOCKS)
-        sigma = _per_block(inv_sigma_px, "build_sharded_decode_stream")
+        sigma = per_block(inv_sigma_px, "build_sharded_decode_stream")
         with torch.inference_mode():
             shards = _decode_rows(devs, qimg, qf, dc, ytox, ytob, dm, igs,
                                   xdm, bdm, sigma, _tensor(sad_mul), tail)

@@ -769,3 +769,110 @@ def test_conformance_check_on_card(cuda, tmp_path):
     rc, n = _launched(conformance.main, ["check", str(tmp_path / "corpus"),
                                          "--host"])
     assert rc == 0 and n == {}
+
+
+def _block_inputs(seed, b, nby, nbx):
+    """_dequant_inputs in the block layout [b, 3, nby, nbx, 8, 8], with a
+    per-block EPF sigma expanded per pixel and the encoder's SAD map and
+    Gaborish."""
+    q, qf, dc, ytox, ytob, dm, igs = _dequant_inputs(seed, b, nby * 8,
+                                                     nbx * 8)
+    blocks = q.reshape(b, 3, nby, 8, nbx, 8).transpose(0, 1, 2, 4, 3, 5)
+    _, isg, gab, sad = _tail_inputs(seed, b, nby * 8, nbx * 8)
+    ispx = np.repeat(np.repeat(isg, 8, 1), 8, 2)
+    return (blocks, qf, dc, ytox, ytob, dm, igs), ispx, gab, sad
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("batch", [1, 2])
+def test_decode_pixels_hybrid_on_card_matches_its_twin(cuda, batch):
+    """One dequant_idct8 launch a call, its XYB within K1's bound of
+    pipeline.decode_xyb, the route's RGB that XYB's colour transform;
+    non-default CfL constants raise on the card too."""
+    args, _, _, _ = _block_inputs(93, batch, 20, 33)
+    if batch == 1:  # one image, one global scale
+        args = [_t(a[0]).to(cuda) for a in args[:5]] + [
+            _t(args[5]).to(cuda), float(args[6][0])]
+    else:
+        args = [_t(a).to(cuda) for a in args]
+    got, n = _launched(kernels.decode_pixels_hybrid, *args, 0.8, 1.25)
+    assert n == {"dequant_idct8": 1}
+    xyb = kernels.dequant_idct8(*kernels._image_args(*args, 0.8, 1.25))
+    torch.testing.assert_close(xyb, tpl.decode_xyb(*args, 0.8, 1.25),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, tpl.xyb_to_rgb(xyb))
+    with pytest.raises(ValueError, match="fixes color_factor"):
+        kernels.decode_pixels_hybrid(*args, base_x=0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("gab", [False, True], ids=["nogab", "gab"])
+@pytest.mark.parametrize("epf_iters", [0, 2, 3])
+def test_decode_render_blocks_on_card_equals_the_image_layout(cuda,
+                                                              epf_iters,
+                                                              gab):
+    """The block-layout render is the image-layout render of the same
+    coefficients (the same launches on the same data, so equal), one
+    dequant_idct8 and one render_tail unless there is no filter; its
+    XYB within the chain's bound of pipeline.decode_render."""
+    (blocks, qf, dc, ytox, ytob, dm, igs), ispx, gabk, sad = _block_inputs(
+        94, 2, 16, 24)
+    t = [_t(a).to(cuda) for a in (blocks, qf, dc, ytox, ytob, dm, igs,
+                                  ispx, sad)]
+    gabk = _t(gabk).to(cuda) if gab else None
+    args = (*t[:7], 1.0, 1.0, gabk, t[7], t[8], CS, epf_iters)
+    got, n = _launched(kernels.decode_render_blocks, *args)
+    want = {"dequant_idct8": 1}
+    if gab or epf_iters:
+        want["render_tail"] = 1
+    assert n == want
+    qimg = tpl.blocks_to_image(t[0]).contiguous()
+    ref = tpl.decode_render_image(qimg, *t[1:7], 1.0, 1.0, gabk,
+                                  _t(ispx[:, ::8, ::8]).to(cuda), t[8], CS,
+                                  epf_iters)
+    if gab or epf_iters:
+        assert torch.equal(got, ref)
+    xyb = kernels.decode_render_blocks(*args, to_rgb=False)
+    torch.testing.assert_close(
+        xyb, tpl.decode_render(*args, to_rgb=False),
+        **chain_tol(gab, epf_iters))
+
+
+@pytest.mark.cuda
+def test_sharded_block_decode_on_a_virtual_mesh_equals_unsharded(cuda):
+    """build_sharded_decode on a (batch 2, rows 2) mesh of four entries of
+    cuda:0 with per-tile CfL maps, each row shard two whole tiles: one
+    dequant_idct8 launch a shard, equal to the same builder on a 1-entry
+    mesh; the dry run's step on the same mesh."""
+    from libjxl_tpu_torch.parallel import dryrun, sharding
+
+    (blocks, qf, dc, ytox, ytob, dm, _), _, _, _ = _block_inputs(95, 2, 32,
+                                                                 16)
+    args = (blocks, qf, dc, ytox, ytob, dm)
+    mesh = sharding.Mesh.of(cuda, 4, batch=2)
+    got, n = _launched(sharding.build_sharded_decode(mesh), *args)
+    assert n == {"dequant_idct8": 4}
+    one, n = _launched(sharding.build_sharded_decode(
+        sharding.Mesh.of(cuda, 1)), *args)
+    assert n == {"dequant_idct8": 1}
+    assert got.device == cuda and tuple(got.shape) == (2, 3, 256, 128)
+    assert torch.equal(got, one)
+    rec, n = _launched(dryrun.dryrun_codec_step, mesh,
+                       np.random.default_rng(1))
+    assert n == {"dequant_idct8": 5}  # 4 shards + the unsharded decode
+    assert rec["block_decode"]["max_abs_err"] <= 1e-3
+
+
+@pytest.mark.cuda
+def test_entry_on_card_matches_its_twin(cuda):
+    from libjxl_tpu_torch import entry
+
+    fn, args = entry.entry()
+    assert all(a.device == cuda for a in args)
+    got, n = _launched(fn, *args)
+    assert n == {"dequant_idct8": 1} and tuple(got.shape) == (3, 256, 256)
+    xyb = kernels.dequant_idct8(
+        *kernels._image_args(*args, 1024.0, 1.0, 1.0))
+    torch.testing.assert_close(xyb, tpl.decode_xyb(*args, 1024.0, 1.0, 1.0),
+                               rtol=1e-5, atol=1e-5)
+    assert torch.equal(got, tpl.xyb_to_rgb(xyb))

@@ -192,6 +192,111 @@ def test_sharded_decode_full_refuses_what_shard_map_refuses():
         run(qimg, qf, dc, ytox, ytob, dm, ispx, sad)
 
 
+# ------------------------------------------------- block-layout decode
+
+def _block_inputs(batch, nby, nbx, maps, seed):
+    """Block-layout coefficients at a photo's XYB magnitudes under the
+    builder's global scale 1024 (sparse AC in [-3, 3], qf 64-127, the
+    DCT8 table) and CfL maps: "zero" per-block-row maps (batch, nby, 1)
+    as the JAX tests and dry run give them, "rows" the same shape
+    nonzero, "tiles" nonzero per 64-px tile (batch, nby/8, 1)."""
+    rng = np.random.default_rng(seed)
+    q = (rng.integers(-3, 4, (batch, 3, nby, nbx, 8, 8))
+         * (rng.random((batch, 3, nby, nbx, 8, 8)) < 0.3)).astype(np.int32)
+    qf = rng.integers(64, 128, (batch, nby, nbx)).astype(np.int32)
+    dc = rng.normal(0, 0.2, (batch, 3, nby, nbx)).astype(np.float32)
+    rows = {"zero": nby, "rows": nby, "tiles": nby // 8}[maps]
+    ytox = rng.integers(-20, 20, (batch, rows, 1)).astype(np.int32)
+    ytob = rng.integers(-20, 20, (batch, rows, 1)).astype(np.int32)
+    if maps == "zero":
+        ytox[:] = ytob[:] = 0
+    dm = library_tables()[0][0].astype(np.float32)
+    return q, qf, dc, ytox, ytob, dm
+
+
+def _unsharded_block_decode(q, qf, dc, ytox, ytob, dm, apply_gab):
+    """The JAX reference of tests/test_tpu_pipeline.py: decode_pixels of
+    each image, then (apply_gab) the Gaborish of the whole image, its
+    rows edge-padded."""
+    out = []
+    for b in range(q.shape[0]):
+        rgb = jpl.decode_pixels(
+            *(jnp.asarray(a[b]) for a in (q, qf, dc, ytox, ytob)),
+            jnp.asarray(dm), inv_global_scale=jnp.float32(1024.0),
+            x_dm_mult=1.0, b_dm_mult=1.0)
+        if apply_gab:
+            rgb = js._gaborish_local(jnp.pad(
+                rgb, ((0, 0), (1, 1), (0, 0)), mode="edge"), js.GAB_DEFAULT)
+        out.append(np.asarray(rgb))
+    return np.stack(out)
+
+
+@pytest.mark.parametrize("maps", ["zero", "rows"])
+@pytest.mark.parametrize("batch", [1, 2])
+@pytest.mark.parametrize("apply_gab", [False, True], ids=["nogab", "gab"])
+def test_sharded_block_decode_matches_the_jax_builder(apply_gab, batch,
+                                                      maps):
+    """On 8 entries (rows 8 or 4), 16 x 8 blocks an image: the port equals
+    the JAX builder, with the JAX builder's fault: each row shard
+    expands its slice of the per-block-row CfL maps from its own tile 0,
+    so with nonzero maps both differ from the unsharded decode (by
+    hundreds of times the bound), and with zero maps both equal it."""
+    args = _block_inputs(batch, 16, 8, maps, 60 + batch)
+    ref = np.asarray(js.build_sharded_decode(
+        _jmesh(8, batch), apply_gab=apply_gab)(*args))
+    before = launch_counts()
+    got = ts.build_sharded_decode(ts.Mesh.of("cpu", 8, batch=batch),
+                                  apply_gab=apply_gab)(*args)
+    assert launch_counts() == before  # CPU tensors run the twins
+    assert got.dtype == torch.float32 and tuple(got.shape) == ref.shape
+    np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5, atol=1e-3)
+    whole = _unsharded_block_decode(*args, apply_gab)
+    err = np.abs(got.numpy() - whole).max()
+    if maps == "zero":
+        np.testing.assert_allclose(got.numpy(), whole, rtol=1e-5, atol=1e-3)
+    else:
+        assert err > 100 * (1e-3 + 1e-5 * np.abs(whole).max()), err
+
+
+def test_sharded_block_decode_on_whole_colour_tiles_is_unsharded():
+    """Per-tile CfL maps with every row shard holding one whole 64-px
+    tile (64 block rows over 8 entries): the sharded decode equals the
+    unsharded one in both packages."""
+    args = _block_inputs(1, 64, 8, "tiles", 70)
+    whole = _unsharded_block_decode(*args, True)
+    ref = np.asarray(js.build_sharded_decode(_jmesh(8, 1))(*args))
+    got = ts.build_sharded_decode(ts.Mesh.of("cpu", 8))(*args).numpy()
+    for out in (ref, got):
+        np.testing.assert_allclose(out, whole, rtol=1e-5, atol=1e-3)
+    one = ts.build_sharded_decode(ts.Mesh.of("cpu", 1))(*args).numpy()
+    np.testing.assert_allclose(got, one, rtol=1e-6, atol=1e-6)
+
+
+def test_sharded_block_decode_refuses_what_shard_map_refuses():
+    args = _block_inputs(2, 16, 8, "zero", 80)
+    with pytest.raises(ValueError, match="batch"):
+        ts.build_sharded_decode(ts.Mesh.of("cpu", 8, batch=2))(
+            *(a[:1] for a in args[:5]), args[5])
+    with pytest.raises(ValueError, match="block rows"):
+        ts.build_sharded_decode(ts.Mesh.of("cpu", 3))(*args)
+    q, qf, dc, ytox, ytob, dm = _block_inputs(1, 16, 8, "tiles", 81)
+    with pytest.raises(ValueError, match="colour tile rows"):
+        ts.build_sharded_decode(ts.Mesh.of("cpu", 4))(q, qf, dc, ytox,
+                                                      ytob, dm)
+
+
+def test_gaborish_local_matches_the_jax_blur():
+    x = np.random.default_rng(82).normal(0, 1, (2, 3, 10, 24)).astype(
+        np.float32)
+    ref = np.asarray(jax.vmap(lambda a: js._gaborish_local(
+        a, js.GAB_DEFAULT))(jnp.asarray(x)))
+    got = tpl.gaborish(torch.from_numpy(x), ts.GAB_KERNELS)[..., 1:-1, :] \
+        .numpy()
+    assert got.shape == ref.shape == (2, 3, 8, 24)
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    assert ts.GAB_DEFAULT == js.GAB_DEFAULT
+
+
 # --------------------------------------------------------------- encode
 
 def _encode_inputs(batch, nby, nbx, seed):
@@ -369,8 +474,43 @@ def test_decode_batch_sharded_needs_a_batch_that_divides(serving_streams):
 
 # -------------------------------------------------------------- dry run
 
+@pytest.mark.parametrize("n,batch", [(4, 2), (8, 2), (3, 1)])
+def test_dryrun_codec_step_decodes_the_encoded_blocks(n, batch):
+    """The JAX dry run's encode and block-layout decode steps on an
+    n-entry mesh; the port's builder held to the JAX builder on the same
+    coefficients (their DC is the quantized DC as the dry run passes it,
+    so XYB runs to the hundreds: the RGB is held to TOL on the XYB,
+    carried, without the blur)."""
+    mesh = ts.Mesh.of("cpu", n, batch=batch)
+    rec = dryrun.dryrun_codec_step(mesh, np.random.default_rng(1))
+    rows = n // batch
+    assert rec["block_decode"]["shape"] == [batch, 3, rows * 16, 64]
+    assert rec["block_decode"]["max_abs_err"] <= 1e-3  # the same route
+    rgb = np.random.default_rng(1).uniform(
+        0, 1, (batch, 3, rows * 16, 64)).astype(np.float32)
+    dm, dm_inv = library_tables()[0]
+    enc = ts.build_sharded_encode(mesh)(
+        rgb, np.full((batch, rows * 2, 8), 64, np.int32), dm_inv,
+        (1.0 / np.where(dm_inv[1] == 0, 1, dm_inv[1])).astype(np.float32),
+        np.array([512.0, 64.0, 32.0], np.float32))
+    zeros = np.zeros((batch, rows * 2, 1), np.int32)
+    args = (enc[0].numpy(), np.full((batch, rows * 2, 8), 64, np.int32),
+            enc[1].numpy().astype(np.float32), zeros, zeros, dm)
+    ref = np.asarray(js.build_sharded_decode(
+        _jmesh(n, batch), apply_gab=False)(*args))
+    got = ts.build_sharded_decode(mesh, apply_gab=False)(*args).numpy()
+    xyb = np.stack([np.asarray(jpl.decode_xyb(
+        *(jnp.asarray(a[b]) for a in args[:5]), jnp.asarray(dm),
+        jnp.float32(1024.0), 1.0, 1.0)) for b in range(batch)])
+    err = np.abs(got - ref)
+    assert (err <= _rgb_tol(xyb, ref)).all(), err.max()
+
+
 def test_dryrun_multichip_on_eight_cpu_entries(capsys):
     rec = dryrun.dryrun_multichip(8, device="cpu", big_mp=0.25)
+    step = rec["codec_step"]
+    assert step["encode_shapes"] == [[2, 3, 8, 8, 8, 8], [2, 3, 8, 8]]
+    assert step["block_decode"]["shape"] == [2, 3, 64, 64]
     assert rec["big"]["side"] == 512
     assert rec["real"]["steps"] <= 1 and rec["big"]["steps"] <= 1
     assert rec["serving_steps"] <= 1
