@@ -158,7 +158,17 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    CfL maps (one dequant_idct8 a shard) against the unsharded route and a
    whole-image Gaborish (equal), and the dry run's block-layout step
    (parallel/dryrun.dryrun_codec_step) on that mesh;
-15. holds every probe kernel (the TPU gather probes S1-S7,
+15. runs each of the port's programs (libjxl_tpu_torch/ops/programs.py,
+   the JAX package's jitted programs as cached CUDA graphs; every phase
+   above runs through them) again on an input an earlier phase handed
+   it (ProgramSpy): the first 16-stream batch, the 2048x2048 e5 frame,
+   the 4:2:0 YCbCr frame, a 4096x4096 strip, a 2048x2048 e3 encode, the
+   first streaming DC group's prep and step, entry()'s group, the block
+   route and the device-entropy batch, eager (cache cleared) against
+   replay: bitwise equal, equal launches, each call and each body timed
+   by CUDA events and the host clock, the capture's time, the memory the
+   program holds and an eager call's peak;
+16. holds every probe kernel (the TPU gather probes S1-S7,
    libjxl_tpu_torch/probes) against its twin, exactly, then drives the
    probes with the counters reset just before: every S1-S5 form timed
    at its TPU probe's step count (ns per lane-step, the marginal cost
@@ -168,8 +178,8 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    cost a step and fixed cost, the tape fill, place's pieces).
 
 It prints the phase seconds, a JSON line of the encode, streaming,
-strip, heuristics, sharded, tools, conformance+fuzz and block-layout
-records, a JSON
+strip, heuristics, sharded, tools, conformance+fuzz, block-layout and
+programs records, a JSON
 line of the conformance+fuzz record alone, the rates (render-only, pipelined
 end-to-end, host-entropy and device-entropy end-to-end MP/s, with the
 device-entropy stages) with the card's name, a line a probe form and the
@@ -3052,6 +3062,230 @@ def drive_block_layout(stream, dev, smi):
     return {"dequant_idct8": k1, "render_tail": k2}, rec
 
 
+# The programs phase (drive_programs): each of the port's programs
+# (ops/programs.py, the JAX package's jitted programs) on an input an
+# earlier phase hands it, by label: (program name, the call to keep)
+PROGRAM_CALLS = {
+    "batch": ("batch", "the first 16-stream batch"),
+    "dec_image": ("dec_image", "the 2048^2 e5 frame"),
+    "dec_sub": ("dec_sub", "the 2048^2 4:2:0 YCbCr frame"),
+    "strip": ("dec_image", "a 4096^2 e3 strip (a middle one, haloed)"),
+    "enc": ("enc", "a 2048^2 d1/e3 encode"),
+    "chunk_prep": ("chunk_prep", "the first streaming DC group's prep"),
+    "chunk_step": ("chunk_step", "the first streaming DC group's step"),
+    "dec": ("dec", "entry()'s 256^2 group (decode_pixels_hybrid)"),
+    "dec_full": ("dec_full", "the block route on a 2048^2 e3 stream "
+                             "(decode_render_blocks)"),
+    "entropy": ("entropy", "the first 16-stream batch, device entropy"),
+}
+PROGRAM_REPS = 5
+
+
+class ProgramSpy:
+    """While installed, keeps for each label of PROGRAM_CALLS the first
+    programs.run call of its program on the card (the CPU references run
+    the bodies directly) that `wants` admits: (name, key, fn,
+    args, kwargs) with the inputs as the call site gave them, so that
+    drive_programs can run the program on them again."""
+
+    def __init__(self, wants):
+        self.wants, self.calls, self.orig = wants, {}, None
+
+    def __enter__(self):
+        import torch
+
+        from libjxl_tpu_torch.ops import programs
+
+        self.orig = run = programs.run
+
+        def spy(name, key, fn, *args, **kw):
+            on_card = torch.device(kw["device"]).type == "cuda"
+            for label, (prog, _) in PROGRAM_CALLS.items():
+                if on_card and prog == name and label not in self.calls \
+                        and self.wants(label, args, kw):
+                    self.calls[label] = (name, key, fn, args, kw)
+                    break
+            return run(name, key, fn, *args, **kw)
+
+        programs.run = spy
+        return self
+
+    def __exit__(self, *exc):
+        from libjxl_tpu_torch.ops import programs
+
+        programs.run = self.orig
+
+
+def wanted_call(label, args, kw):
+    """The calls drive_programs runs again: a 2048^2 encode, a strip of
+    the BIG^2 photo (qimg 64 + 256 + 64 rows by BIG), every other
+    program's first call."""
+    if label == "enc":
+        return args[0].shape[-1] == SIZE
+    if label == "strip":
+        return tuple(kw["qimg"].shape) == (3, 384, BIG)
+    if label == "dec_image":
+        return tuple(kw["qimg"].shape) == (3, SIZE, SIZE)
+    if label == "dec":
+        return tuple(args[0].shape) == (3, 32, 32, 8, 8)
+    return True
+
+
+def _same(a, b):
+    """Bitwise equality of two program results."""
+    import torch
+
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and bool(torch.equal(a, b))
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def drive_programs(calls, dev, smi):
+    """Each program of the port on the inputs an earlier phase gave it
+    (ProgramSpy, PROGRAM_CALLS), eager against replay: the eager call
+    (cache cleared before it) and the replay give equal results, bitwise,
+    with equal launches; each call timed by the host clock (synchronized)
+    and by CUDA events, mean of PROGRAM_REPS; the body alone (eager on
+    inputs already on the card, and the graph's replay alone) by CUDA
+    events and the host clock; the rest of a call by the host clock (the
+    upload of its inputs, their copy into the slots, the readback or
+    clone of its outputs), and its largest host input copied from
+    pageable and from pinned memory; the capture's host seconds; the
+    device memory the cached program holds (slots, pool, after
+    empty_cache) and an eager call's peak above what was allocated before
+    it. Returns the phase's record."""
+    import gc
+
+    import torch
+
+    from libjxl_tpu_torch.ops import programs
+
+    def timed(fn):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        start.record()
+        out, n = counted(fn)
+        end.record()
+        torch.cuda.synchronize()
+        return out, n, (time.perf_counter() - t) * 1e3, \
+            start.elapsed_time(end)
+
+    def mean_of(fn, reps=PROGRAM_REPS, before=None):
+        host, ev = [], []
+        for _ in range(reps):
+            if before:
+                before()
+            out, n, h, e = timed(fn)
+            host.append(h)
+            ev.append(e)
+        return out, n, float(np.mean(host)), float(np.mean(ev))
+
+    check(set(calls) == set(PROGRAM_CALLS),
+          f"programs phase: the earlier phases gave {sorted(calls)}, not "
+          f"every one of {sorted(PROGRAM_CALLS)}")
+    rec = {}
+    for label, (name, key, fn, args, kw) in calls.items():
+        def call():
+            return programs.run(name, key, fn, *args, **kw)
+
+        def clear():
+            programs.clear(dev)
+
+        eager, n_eager, eager_host, eager_ev = mean_of(call, before=clear)
+        # the eager call's peak above what it finds allocated
+        clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        reserved = torch.cuda.memory_reserved()
+        torch.cuda.reset_peak_memory_stats()
+        timed(call)
+        eager_peak = (torch.cuda.max_memory_allocated() - base) / 1e9
+        captured, n_capture, capture_host, _ = timed(call)
+        (prog,) = [p for p in programs.programs(dev) if p.name == name]
+        check(prog.mode == "replay", f"program {label}: {prog.mode} after "
+              "its second call")
+        replayed, n_replay, replay_host, replay_ev = mean_of(call)
+        gc.collect()
+        torch.cuda.empty_cache()
+        held = (torch.cuda.memory_reserved() - reserved) / 1e9
+        # the body alone: eager on inputs on the card, the graph alone
+        inputs, spec = programs.flatten((args, kw))
+        on = programs.unflatten(spec, [programs._on(x, dev)
+                                       for x in inputs])
+        with torch.inference_mode():
+            _, _, body_host, body_ev = mean_of(
+                lambda: fn(*on[0], **{k: v for k, v in on[1].items()
+                                      if k not in ("device",
+                                                   "readback")}))
+        _, _, graph_host, graph_ev = mean_of(prog.graph.replay)
+        del on
+        # the rest of a call: its host inputs' upload (eager) or their
+        # copy into the slots (replay), and its outputs' readback (or
+        # clone); the largest host input also from pinned memory
+        outs = programs.flatten(prog.out)[0]
+        readback = kw.get("readback", False)
+        _, _, upload_ms, _ = mean_of(
+            lambda: [programs._on(x, dev) for x in inputs])
+        _, _, load_ms, _ = mean_of(lambda: prog._load(inputs))
+        _, _, back_ms, _ = mean_of(
+            lambda: [t.cpu().numpy() if readback else t.clone()
+                     for t in outs])
+        host_in = [x for x in inputs if isinstance(x, np.ndarray)]
+        pinned_ms = pageable_ms = None
+        if host_in:
+            big = programs._host(max(host_in, key=lambda x: x.nbytes))
+            pinned = big.pin_memory()
+            slot = torch.empty(big.shape, dtype=big.dtype, device=dev)
+            _, _, pageable_ms, _ = mean_of(lambda: slot.copy_(big))
+            _, _, pinned_ms, _ = mean_of(
+                lambda: slot.copy_(pinned, non_blocking=True))
+            del pinned, slot
+        del outs
+        check(_same(eager, captured) and _same(eager, replayed),
+              f"program {label}: the replay differs from the eager call")
+        check(n_eager == n_capture == n_replay,
+              f"program {label}: launches eager {n_eager}, capture "
+              f"{n_capture}, replay {n_replay}")
+        rec[label] = {
+            "program": name, "input": PROGRAM_CALLS[label][1],
+            "key": repr(key), "launches": n_replay, "bitwise_equal": True,
+            "eager_call_ms": eager_host, "eager_call_event_ms": eager_ev,
+            "replay_call_ms": replay_host, "replay_call_event_ms": replay_ev,
+            "eager_body_ms": body_host, "eager_body_event_ms": body_ev,
+            "replay_graph_ms": graph_host, "replay_graph_event_ms": graph_ev,
+            "capture_ms": prog.capture_s * 1e3,
+            "capture_call_ms": capture_host,
+            "eager_upload_ms": upload_ms, "replay_load_ms": load_ms,
+            "readback_ms": back_ms,
+            "largest_input_mb": (max(x.nbytes for x in host_in) / 1e6
+                                 if host_in else 0.0),
+            "largest_input_pageable_ms": pageable_ms,
+            "largest_input_pinned_ms": pinned_ms,
+            "eager_peak_gb": eager_peak, "held_gb": held}
+        log(f"program {label} ({name}, {PROGRAM_CALLS[label][1]}): "
+            f"launches {json.dumps(n_replay)}; call eager "
+            f"{eager_host:.4f} ms, replay {replay_host:.4f} ms (host "
+            f"clock; events {eager_ev:.4f} / {replay_ev:.4f}); body eager "
+            f"{body_ev:.4f} ms, graph replay {graph_ev:.4f} ms (events; "
+            f"host {body_host:.4f} / {graph_host:.4f}); capture "
+            f"{prog.capture_s * 1e3:.2f} ms; upload {upload_ms:.4f} / slot "
+            f"load {load_ms:.4f} ms, readback {back_ms:.4f} ms (host "
+            f"clock); largest host input pageable {pageable_ms} / pinned "
+            f"{pinned_ms} ms; held {held:.3f} GB, eager peak "
+            f"{eager_peak:.3f} GB; bitwise equal; {smi}")
+        # nothing of this program outlives it: the next one's baseline
+        del eager, captured, replayed, prog
+        programs.clear(dev)
+    return rec
+
+
 def drive_block_sharded(dev):
     """build_sharded_decode on a (batch 2, rows 2) mesh of SHARDS entries
     (the cards in turn) at 2 x SIZE^2 with nonzero per-tile CfL maps,
@@ -3147,6 +3381,11 @@ def main():
 
     import concurrent.futures as cf
     import multiprocessing as mp
+
+    # every phase below runs through the port's programs; the spy keeps
+    # the calls drive_programs runs again
+    spy = ProgramSpy(wanted_call)
+    spy.__enter__()
 
     # the single-image path's streams first: the e5 encodes take longest
     single_jobs = ([(SIZE, SIZE, 400 + i, "e5") for i in range(E5_FRAMES)]
@@ -3343,6 +3582,14 @@ def main():
     for rec in records[:2]:
         rec["block_layout"] = block[rec["name"]]
     log(f"phase block layout: {time.perf_counter() - t:.2f} s")
+
+    # the programs: each eager against its replay on an earlier phase's
+    # inputs
+    spy.__exit__()
+    t = time.perf_counter()
+    paths["programs"] = drive_programs(spy.calls, dev, smi)
+    del spy
+    log(f"phase programs: {time.perf_counter() - t:.2f} s")
 
     # the TPU gather probes S1-S7 and the device-entropy profile
     t = time.perf_counter()

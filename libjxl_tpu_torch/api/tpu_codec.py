@@ -27,6 +27,14 @@ the encode step (pipeline.encode_step: XYB, adaptive quant field, inverse
 Gaborish, DCT8, CfL, dead-zone quantization; torch ops, no hand kernel)
 on the device and the entropy coding on the host.
 
+Each device step is a program (ops/programs.py, a cached CUDA graph, the
+counterpart of the JAX package's jitted programs): "batch" (_render,
+the JAX _BATCH_PROGS), "entropy" (decode_batch_entropy, _ENTROPY_PROGS),
+"dec_image" (render_image, _jitted().dec_image), "dec_sub"
+(_render_subsampled_device, _jitted_sub) and "enc" (encode_lossy_tpu,
+_jitted().enc with srgb2lin). BatchRenderer and decode_batch_sharded
+stay eager, and so does a call with a timing hook.
+
 Nothing here probes or imports JAX: the host layers it calls
 (codestream header parsing, decode_vardct_frame, render.pipeline
 helpers, the ops/ans_tpu plan builder) are the port's own copies of the
@@ -47,7 +55,7 @@ from ..base.device import resolve_device
 from ..base.status import JXLError
 from ..io.bits import BitReader, BitWriter
 from ..io.frame_header import FrameHeader
-from ..ops import ans_kernel, ans_tpu, kernels, pipeline
+from ..ops import ans_kernel, ans_tpu, kernels, pipeline, programs
 from ..ops.staging import (block_sigma, dequant_tables, f32, gab_kernels,
                            sad_mul, to_device)
 from ..vardct import ac_strategy as acs
@@ -70,6 +78,9 @@ class BatchConfig:
     pass0_sigma_scale: float
     pass2_sigma_scale: float
     channel_scale: tuple
+    # the JAX path's program key minus the batch size, as its
+    # _BATCH_PROGS stores it (the sigma scales as the header holds them)
+    key: tuple = ()
 
 
 def _parse(streams, **frame_kw):
@@ -147,14 +158,18 @@ def _stage(states, fhs, dm0):
         gabk = np.zeros((3, 3, 3), dtype=np.float32)
     ts = (fd0.ysize, fd0.xsize) if (fd0.ysize, fd0.xsize) != (h, w) \
         else None
+    xdm = float(np.float32(states[0].x_dm_mult))
+    bdm = float(np.float32(states[0].b_dm_mult))
+    cs = tuple(float(np.float32(v)) for v in lf0.epf_channel_scale)
     config = BatchConfig(
         height=h, width=w, epf_iters=int(lf0.epf_iters), gab=bool(lf0.gab),
-        true_size=ts, x_dm_mult=float(np.float32(states[0].x_dm_mult)),
-        b_dm_mult=float(np.float32(states[0].b_dm_mult)),
+        true_size=ts, x_dm_mult=xdm, b_dm_mult=bdm,
         pass0_sigma_scale=float(np.float32(lf0.epf_pass0_sigma_scale)),
         pass2_sigma_scale=float(np.float32(lf0.epf_pass2_sigma_scale)),
-        channel_scale=tuple(float(np.float32(v))
-                            for v in lf0.epf_channel_scale))
+        channel_scale=cs,
+        key=(h, w, int(lf0.epf_iters), bool(lf0.gab), ts, xdm, bdm,
+             float(lf0.epf_pass0_sigma_scale),
+             float(lf0.epf_pass2_sigma_scale), cs))
     return config, (qf, dc, ytox, ytob, igs, isp, dm0, gabk, sad)
 
 
@@ -247,14 +262,30 @@ class BatchRenderer(nn.Module):
 
     def forward(self, qimg, qf, dc, ytox, ytob, inv_global_scale,
                 inv_sigma, mark=None):
-        c = self.config
-        return pipeline.decode_render_image(
-            qimg, qf, dc, ytox, ytob, self.dm, inv_global_scale,
-            c.x_dm_mult, c.b_dm_mult, self.gab_kernels if c.gab else None,
-            inv_sigma, self.sad_mul, c.channel_scale, c.epf_iters,
-            to_rgb="u8srgb", pass0_sigma_scale=c.pass0_sigma_scale,
-            pass2_sigma_scale=c.pass2_sigma_scale, true_size=c.true_size,
-            mark=mark)
+        return render_batch(qimg, qf, dc, ytox, ytob, inv_global_scale,
+                            inv_sigma, self.dm, self.gab_kernels,
+                            self.sad_mul, config=self.config, mark=mark)
+
+
+def render_batch(qimg, qf, dc, ytox, ytob, inv_global_scale, inv_sigma, dm,
+                 gab_kernels, sad_mul, config: BatchConfig, mark=None):
+    """The batch render, sRGB u8 [B, H, W, 3]: BatchRenderer.forward's
+    body, and the body of the "batch" program (the JAX path's
+    _BATCH_PROGS) that _render runs; gab_kernels is read when config.gab
+    is set."""
+    c = config
+    return pipeline.decode_render_image(
+        qimg, qf, dc, ytox, ytob, dm, inv_global_scale, c.x_dm_mult,
+        c.b_dm_mult, gab_kernels if c.gab else None, inv_sigma, sad_mul,
+        c.channel_scale, c.epf_iters, to_rgb="u8srgb",
+        pass0_sigma_scale=c.pass0_sigma_scale,
+        pass2_sigma_scale=c.pass2_sigma_scale, true_size=c.true_size,
+        mark=mark)
+
+
+def batch_key(config: BatchConfig, batch: int) -> tuple:
+    """The "batch" program's key: the JAX path's _BATCH_PROGS key."""
+    return (batch, *config.key)
 
 
 def batch_from_numpy(args, config: BatchConfig, device="cuda"):
@@ -293,11 +324,23 @@ class _Laps:
         self.t = t
 
 
+def _crop(config: BatchConfig, u8) -> list:
+    th, tw = config.true_size or (config.height, config.width)
+    return [u8[i, :th, :tw] for i in range(u8.shape[0])]
+
+
 def _render(config: BatchConfig, args, device, lap=None) -> list:
     """Upload, render and read back one staged batch: a list of u8
-    [ysize, xsize, 3] images cropped to the frame's true size. `lap`, a
-    _Laps, times the three stages."""
-    lap = lap or _Laps(None, None)
+    [ysize, xsize, 3] images cropped to the frame's true size. Runs the
+    "batch" program, whose input slots take the arrays straight from the
+    host, and reads its output back before the program runs again (so
+    decode_pipelined's worker may render while the caller's thread
+    stages). `lap`, a _Laps, times the three stages instead, eagerly."""
+    if lap is None:
+        u8 = programs.run("batch", batch_key(config, len(args[0])),
+                          render_batch, *args, config=config,
+                          device=resolve_device(device), readback=True)
+        return _crop(config, u8)
     renderer, inputs = batch_from_numpy(args, config, device)
     lap("upload of the render arrays")
     with torch.inference_mode():
@@ -305,8 +348,7 @@ def _render(config: BatchConfig, args, device, lap=None) -> list:
         lap("render")
         u8 = px.cpu().numpy()
     lap("readback")
-    th, tw = config.true_size or (config.height, config.width)
-    return [u8[i, :th, :tw] for i in range(u8.shape[0])]
+    return _crop(config, u8)
 
 
 def decode_batch(streams, device="cuda", num_threads: int = 0) -> list:
@@ -348,8 +390,7 @@ def decode_batch_sharded(streams, mesh=None, num_threads: int = 0) -> list:
             px.append(renderer(*inputs))
         synchronize(devs)
         u8 = np.concatenate([p.cpu().numpy() for p in px])
-    th, tw = config.true_size or (config.height, config.width)
-    return [u8[i, :th, :tw] for i in range(u8.shape[0])]
+    return _crop(config, u8)
 
 
 def decode_pipelined(streams, device="cuda", batch_size: int = 16,
@@ -401,21 +442,53 @@ def _host_fallback(streams, device, reason: str):
     return images, {"path": "host_entropy", "fallback": reason}
 
 
+def entropy_key(config: BatchConfig, lp) -> tuple:
+    """The "entropy" program's key: the JAX path's _ENTROPY_PROGS key but
+    its last field (the JAX kernel's interpret mode, which the port does
+    not have), the lane-layout fields computed from the port's LanePlan
+    as the JAX ServePlan computes them."""
+    return (lp.B, *config.key, *ans_kernel.program_key(lp))
+
+
+def _entropy_program(lanes, inv_order, render_args, geometry, las, t_alloc,
+                     config):
+    """The device-entropy batch in one program (the JAX path's
+    _ENTROPY_PROGS form): K3 over the whole t_alloc tape, its placement,
+    the batch render. Returns (u8 [B, H, W, 3], ok bool[L])."""
+    lt = ans_kernel.LaneTensors(**lanes, las=las, t_alloc=t_alloc)
+    tape, ok, _ = kernels.ans_decode(lt)
+    qimg = ans_kernel.place(tape, geometry, inv_order)
+    return render_batch(qimg, *render_args, config=config), ok
+
+
+def _not_ok(ok) -> None:
+    bad = np.flatnonzero(np.asarray(ok) == 0)
+    if bad.size:
+        raise JXLError(
+            f"batch decode: device kernel flagged {bad.size} lanes "
+            f"not ok: {bad[:16].tolist()}"
+            + (" ..." if bad.size > 16 else ""))
+
+
 def decode_batch_entropy(streams, device="cuda",
                          stages: dict | None = None):
     """Batch decode with the AC entropy decode on `device` (the port of
     decode_tpu_batch_entropy). Returns (images, info): uint8 (H, W, 3)
     images in input order, and info["path"] == "device_entropy".
 
-    On `device`: upload of the lane plan; the rANS decode
-    (kernels.ans_decode); the placement of its tape into qimg
-    (ans_kernel.place), which never leaves the device; upload of the
-    render arrays; BatchRenderer (dequant_idct8 + render_tail); one readback
-    of the images. The lanes' ok flags and step counts are read back
-    before the placement, which reads only the tape rows that some lane
-    wrote. A dict `stages` receives each stage's host-clock seconds, the
-    device synchronized at each stage's end (which costs the path its
-    overlap, so time the end-to-end rate without it).
+    On `device`, the "entropy" program (the JAX path's fused program):
+    the rANS decode (kernels.ans_decode) into a tape of the plan's
+    structural bound rounded up to ans_kernel.TAPE_STEP rows, the
+    placement of the whole tape into qimg (ans_kernel.place), which never
+    leaves the device, and the batch render (dequant_idct8 +
+    render_tail); then one readback of the images and the lanes' ok
+    flags. A dict `stages` takes the measurement route instead, eagerly:
+    upload of the lane plan; the rANS decode; the ok flags and step
+    counts read back, the placement of the tape rows that some lane
+    wrote; upload of the render arrays; the render; the readback, each
+    stage's host-clock seconds in `stages`, the device synchronized at
+    each stage's end (which costs the path its overlap, so time the
+    end-to-end rate without it).
 
     Streams outside the device kernel's scope fall back, before anything
     is uploaded, to decode_batch with info["path"] == "host_entropy" and
@@ -429,6 +502,16 @@ def decode_batch_entropy(streams, device="cuda",
         config, render_args, lane_plan = prepare_batch_entropy(streams)
     except JXLError as e:
         return _host_fallback(streams, dev, str(e))
+    if stages is None:
+        lp = dataclasses.replace(
+            lane_plan, t_alloc=ans_kernel.tape_rows(lane_plan.t_alloc))
+        u8, ok = programs.run(
+            "entropy", entropy_key(config, lane_plan), _entropy_program,
+            lp.arrays(), lp.inv_order, render_args,
+            geometry=ans_kernel.Geometry.of(lp), las=lp.las,
+            t_alloc=lp.t_alloc, config=config, device=dev, readback=True)
+        _not_ok(ok)
+        return _crop(config, u8), {"path": "device_entropy"}
     lap("host parse + plan + lane plan")
     with torch.inference_mode():
         lane_tensors = lane_plan.to(dev)
@@ -436,12 +519,7 @@ def decode_batch_entropy(streams, device="cuda",
         tape, ok, steps = kernels.ans_decode(lane_tensors)
         lap("ans_decode")
         flags = torch.stack([ok.to(torch.int32), steps]).cpu().numpy()
-        bad = np.flatnonzero(flags[0] == 0)
-        if bad.size:
-            raise JXLError(
-                f"batch decode: device kernel flagged {bad.size} lanes "
-                f"not ok: {bad[:16].tolist()}"
-                + (" ..." if bad.size > 16 else ""))
+        _not_ok(flags[0])
         qimg = ans_kernel.place(tape[:max(int(flags[1].max()), 1)],
                                 lane_plan)
         del tape, lane_tensors
@@ -639,6 +717,35 @@ def stage_image(state, fh, direct_u8: bool):
     return args, kwargs
 
 
+def image_key(kw: dict) -> tuple:
+    """The "dec_image" program's key, the static arguments of the JAX
+    package's jitted dec_image: (epf_iters, tile_shapes, gab, to_rgb,
+    size_shapes, true_size), from decode_render_image's arguments."""
+    return (kw["epf_iters"], kw["tile_shapes"] or (),
+            kw["gab_kernels"] is not None, kw["to_rgb"],
+            kw["size_shapes"] or (), kw["true_size"])
+
+
+_IMAGE_ARGS = ("qimg", "qf", "dc", "ytox_map", "ytob_map", "dm",
+               "inv_global_scale", "x_dm_mult", "b_dm_mult", "gab_kernels",
+               "inv_sigma", "sad_mul", "channel_scale", "epf_iters")
+
+
+def render_image(args, kw, device):
+    """pipeline.decode_render_image(*args, **kw) through the "dec_image"
+    program (the JAX package's jitted dec_image) on `device`, read back
+    as numpy: the single-image render of make_device_render and the
+    strips of vardct/low_memory. args and kw as stage_image gives them
+    (numpy arrays, the program's inputs; inv_global_scale goes in as one
+    f32 of data, as the JAX program takes it)."""
+    named = dict(zip(_IMAGE_ARGS, args), **kw)
+    named["inv_global_scale"] = np.asarray(named["inv_global_scale"],
+                                           dtype=np.float32)
+    return programs.run("dec_image", image_key(named),
+                        pipeline.decode_render_image, device=device,
+                        readback=True, **named)
+
+
 def _render_subsampled_device(state, fh, out, dev) -> bool:
     """The device render of a YCbCr frame (the JPEG recompression decode
     path): pipeline.decode_render_subsampled (dequant + IDCT8, box chroma
@@ -700,19 +807,20 @@ def _render_subsampled_device(state, fh, out, dev) -> bool:
     h, w = fd.ysize_blocks * 8, fd.xsize_blocks * 8
     dm = np.stack([state.matrices.dequant_matrix(0, c).reshape(8, 8)
                    for c in range(3)]).astype(np.float32)
-    args = to_device(([q.astype(np.int32, copy=False) for q in qs], dcs,
-                      scaled, dm, gab_kernels(lf), block_sigma(state, lf),
-                      sad_mul(lf, h, w)), dev)
-    with torch.inference_mode():
-        u8 = pipeline.decode_render_subsampled(
-            *args, tuple(f32(v) for v in lf.epf_channel_scale),
-            tuple((int(hs[c]), int(vs[c])) for c in range(3)),
-            epf_iters=int(lf.epf_iters), gab=bool(lf.gab),
-            pass0_sigma_scale=f32(lf.epf_pass0_sigma_scale),
-            pass2_sigma_scale=f32(lf.epf_pass2_sigma_scale), to_u8=True,
-            true_size=(fd.ysize, fd.xsize)
-            if (fd.ysize, fd.xsize) != (h, w) else None)
-        out["u8"] = u8.cpu().numpy()
+    shifts = tuple((int(hs[c]), int(vs[c])) for c in range(3))
+    ts = (fd.ysize, fd.xsize) if (fd.ysize, fd.xsize) != (h, w) else None
+    # the "dec_sub" program (the JAX package's _jitted_sub): its key, the
+    # JAX one's static arguments
+    out["u8"] = programs.run(
+        "dec_sub", (shifts, int(lf.epf_iters), bool(lf.gab), True, ts),
+        pipeline.decode_render_subsampled,
+        [q.astype(np.int32, copy=False) for q in qs], dcs, scaled, dm,
+        gab_kernels(lf), block_sigma(state, lf), sad_mul(lf, h, w),
+        tuple(f32(v) for v in lf.epf_channel_scale), shifts,
+        epf_iters=int(lf.epf_iters), gab=bool(lf.gab),
+        pass0_sigma_scale=f32(lf.epf_pass0_sigma_scale),
+        pass2_sigma_scale=f32(lf.epf_pass2_sigma_scale), to_u8=True,
+        true_size=ts, device=dev, readback=True)
     out["path"] = "device:u8-ycbcr"
     state.device_output_done = True
     return True
@@ -789,9 +897,7 @@ def make_device_render(fh, out: dict, device="cuda"):
         if staged is None:
             host_fallback(state, "unaligned/odd-size transform layout")
             return
-        args, kw = to_device(staged, dev)
-        with torch.inference_mode():
-            host = pipeline.decode_render_image(*args, **kw).cpu().numpy()
+        host = render_image(*staged, dev)
         if direct_u8:
             out["u8"] = host
             out["path"] = "device:u8"
@@ -840,6 +946,15 @@ def enc(rgb, dm_inv, dm, inv_global_scale, base_quant, x_dm_mult,
     return qimg, nz, dc, qf, ytox, ytob, sharp
 
 
+def _encode_program(srgb, dm_inv, dm, inv_global_scale, base_quant,
+                    x_dm_mult, b_dm_mult, adaptive, cfl, gab, distance):
+    """The "enc" program: the JAX package's jitted srgb2lin, then its
+    jitted enc, on sRGB f32[3, H, W]."""
+    return enc(pipeline.srgb2lin(srgb), dm_inv, dm, inv_global_scale,
+               base_quant, x_dm_mult, b_dm_mult, adaptive=adaptive, cfl=cfl,
+               gab=gab, distance=distance)
+
+
 def encode_lossy_tpu(image: np.ndarray, distance: float = 1.0,
                      adaptive_quant: bool = True, cfl: bool = True,
                      gaborish: bool = None, epf: int = None,
@@ -848,9 +963,14 @@ def encode_lossy_tpu(image: np.ndarray, distance: float = 1.0,
     on `device` ("cuda" by default; a missing card raises; "cpu" runs the
     same torch ops on the CPU). Returns a bare JPEG XL codestream (DCT8
     strategy); the host codes the entropy. gaborish/epf: loop-filter
-    overrides (None = encoder defaults). mark, when given, is called as
-    mark(stage, value) at the end of each of ENCODE_STAGES with the
-    stage's output (a timing hook)."""
+    overrides (None = encoder defaults). The device step is the "enc"
+    program (srgb2lin and the encode step, its key the JAX package's
+    static arguments (adaptive, cfl, gab, distance); the scalars, which
+    its torch ops take by value, in the program's key too). mark, when
+    given, is called as mark(stage, value) at the end of each of
+    ENCODE_STAGES with the stage's output (a timing hook), and the step
+    runs eagerly."""
+    timed = mark is not None
     mark = mark or (lambda stage, value: None)
     from ..io.frame_header import CT_XYB, ENC_VARDCT, FT_REGULAR
     from ..io.headers import CodecMetadata, SizeHeader
@@ -910,19 +1030,27 @@ def encode_lossy_tpu(image: np.ndarray, distance: float = 1.0,
     b_dm_mult = (1 / 1.25) ** (fh.b_qm_scale - 2.0)
 
     mark("host setup", srgb)
-    srgb_t, dm_inv_t, dm_t = to_device((srgb, dm_inv, dm), dev)
-    mark("upload", srgb_t)
-    with torch.inference_mode():
-        rgb = pipeline.srgb2lin(srgb_t)
-        mark("srgb2lin", rgb)
-        out = enc(rgb, dm_inv_t, dm_t, f32(quantizer.inv_global_scale),
-                  f32(base_quant), f32(x_dm_mult), f32(b_dm_mult),
-                  adaptive=adaptive_quant, cfl=cfl, gab=fh.loop_filter.gab,
-                  distance=float(distance) if adaptive_quant else None)
-        mark("encode step", out)
-        qimg, nz, dc, qf, ytox, ytob, sharp = host = tuple(
-            t.cpu().numpy() for t in out)
-        mark("readback", host)
+    scalars = (f32(quantizer.inv_global_scale), f32(base_quant),
+               f32(x_dm_mult), f32(b_dm_mult))
+    statics = dict(adaptive=adaptive_quant, cfl=cfl,
+                   gab=bool(fh.loop_filter.gab),
+                   distance=float(distance) if adaptive_quant else None)
+    if timed:
+        srgb_t, dm_inv_t, dm_t = to_device((srgb, dm_inv, dm), dev)
+        mark("upload", srgb_t)
+        with torch.inference_mode():
+            rgb = pipeline.srgb2lin(srgb_t)
+            mark("srgb2lin", rgb)
+            out = enc(rgb, dm_inv_t, dm_t, *scalars, **statics)
+            mark("encode step", out)
+            host = tuple(t.cpu().numpy() for t in out)
+    else:
+        host = programs.run(
+            "enc", tuple(statics.values()), _encode_program,
+            np.ascontiguousarray(srgb), dm_inv, dm, *scalars, **statics,
+            device=dev, readback=True)
+    qimg, nz, dc, qf, ytox, ytob, sharp = host
+    mark("readback", host)
     precomputed = {
         "quant_median": quant_median if adaptive_quant else quant_ac,
         "qimg": qimg, "nz": nz, "dc": dc, "qf": qf, "ytox_map": ytox,

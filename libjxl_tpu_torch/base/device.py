@@ -13,11 +13,15 @@ mantissa.
 
 Launch counters: each hand-written kernel's wrapper owns one counter and
 adds one where it launches its kernel, and nowhere else, so a run can
-show that its main path went through the kernels.
+show that its main path went through the kernels. While a thread
+captures a CUDA graph (ops/programs.py) its wrappers' launches are
+recorded instead of counted (recording_launches), and each replay of
+the graph adds what its capture recorded.
 """
 
 from __future__ import annotations
 
+import contextlib
 import subprocess
 import threading
 
@@ -47,6 +51,9 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+_RECORDING = threading.local()
+
+
 class LaunchCounter:
     """Number of launches of one kernel (thread-safe)."""
 
@@ -56,6 +63,10 @@ class LaunchCounter:
         self._lock = threading.Lock()
 
     def add(self, n: int = 1) -> None:
+        record = getattr(_RECORDING, "launches", None)
+        if record is not None:
+            record[self.name] = record.get(self.name, 0) + n
+            return
         with self._lock:
             self.count += n
 
@@ -79,6 +90,20 @@ def launch_counts() -> dict[str, int]:
 def reset_launch_counts() -> None:
     for c in _COUNTERS.values():
         c.reset()
+
+
+@contextlib.contextmanager
+def recording_launches():
+    """Within the block, this thread's launches go into the yielded dict
+    ({counter name: launches}) and not into the counters: a graph capture
+    queues its kernels without running them."""
+    if getattr(_RECORDING, "launches", None) is not None:
+        raise RuntimeError("recording_launches: already recording")
+    _RECORDING.launches = record = {}
+    try:
+        yield record
+    finally:
+        _RECORDING.launches = None
 
 
 def card_line() -> str:

@@ -30,6 +30,11 @@ from .ans_tpu import (ANS_LOG, ANS_SIGNATURE, K_FREQ_CTX, K_NONZ_CTX, MARKER,
 from .build import CTA_LANES
 
 MAX_LANES = 1024     # the JAX plan's lane grid, 8 x 128
+# the JAX kernel's steps a call (F_TOT): the device-entropy program's tape
+# has a multiple of it rows, so that its key takes the JAX form
+TAPE_STEP = 120
+# the JAX ServePlan's rows of a zero-density LUT (zd_rows)
+ZD_ROWS = -(-((3 * ZD_COUNT + 3) // 4) // 128)
 SLACK_HW = 256       # zero halfwords after each lane's stream
 GROUP_BLOCKS = 32    # DCT8 blocks per group side
 NZ_WIDTH = 3 * NONZERO_BUCKETS
@@ -67,22 +72,23 @@ class LanePlan:
     def n_lanes(self) -> int:
         return len(self.lane_off)
 
+    def arrays(self) -> dict:
+        """LaneTensors' arrays as numpy, u16 and u32 words viewed as
+        int16 and int32, with the CTA table of ans_decode.cu
+        (cta_first)."""
+        return dict(
+            flat_hw=self.flat_hw.view(np.int16), lane_off=self.lane_off,
+            n_chains=self.n_chains, bw=self.bw, lane_img=self.lane_img,
+            a1=self.a1.view(np.int32), a2=self.a2.view(np.int32),
+            nzclu=self.nzclu, zdclu=self.zdclu, kz=self.kz,
+            cta_first=cta_first(self.lane_img))
+
     def to(self, device) -> "LaneTensors":
-        """The decode's inputs as tensors on `device`, with the CTA table
-        of ans_decode.cu (cta_first)."""
-
-        def t(a, dtype=None):
-            a = np.ascontiguousarray(a if dtype is None else a.view(dtype))
-            return torch.from_numpy(a).to(device)
-
+        """The decode's inputs as tensors on `device`."""
         return LaneTensors(
-            flat_hw=t(self.flat_hw, np.int16), lane_off=t(self.lane_off),
-            n_chains=t(self.n_chains), bw=t(self.bw),
-            lane_img=t(self.lane_img), a1=t(self.a1, np.int32),
-            a2=t(self.a2, np.int32), nzclu=t(self.nzclu),
-            zdclu=t(self.zdclu), kz=t(self.kz),
-            cta_first=t(cta_first(self.lane_img)), las=self.las,
-            t_alloc=self.t_alloc)
+            **{k: torch.from_numpy(np.ascontiguousarray(a)).to(device)
+               for k, a in self.arrays().items()},
+            las=self.las, t_alloc=self.t_alloc)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -103,6 +109,31 @@ class LaneTensors:
     cta_first: torch.Tensor  # i32 [n_cta + 1]: see cta_first()
     las: int
     t_alloc: int
+
+
+def tape_rows(t_alloc: int) -> int:
+    """t_alloc rounded up to a multiple of TAPE_STEP (the JAX ServePlan's
+    t_alloc of the same plan)."""
+    return -(-t_alloc // TAPE_STEP) * TAPE_STEP
+
+
+def sublane_images(lane_img: np.ndarray) -> int:
+    """The JAX ServePlan's n_per_sub: the most images whose lanes share
+    one of its 8 sublanes of 128 lanes (at least 1)."""
+    lanes = np.full(MAX_LANES, -1, np.int64)
+    lanes[:len(lane_img)] = lane_img
+    per_sub = [len({int(v) for v in row if v >= 0})
+               for row in lanes.reshape(8, 128)]
+    return max(1, max(per_sub))
+
+
+def program_key(lp: "LanePlan") -> tuple:
+    """(alias_rows, zd_rows, las, n_per_sub, max_iters, t_alloc): the JAX
+    ServePlan's fields in its _ENTROPY_PROGS key, from the same plan;
+    t_alloc is tape_rows of the plan's structural bound."""
+    rows = tape_rows(lp.t_alloc)
+    return (lp.alias_rows, ZD_ROWS, lp.las, sublane_images(lp.lane_img),
+            rows // TAPE_STEP, rows)
 
 
 def cta_first(lane_img: np.ndarray) -> np.ndarray:
@@ -394,15 +425,33 @@ def ans_decode_plain(lt: LaneTensors):
     return tape, ok, steps
 
 
-def place(tape: torch.Tensor, lp: LanePlan) -> torch.Tensor:
+@dataclasses.dataclass(frozen=True)
+class Geometry:
+    """What place needs of a LanePlan besides inv_order: a program's
+    static key (a LanePlan is one batch's data)."""
+
+    B: int
+    gy: int
+    gx: int
+    H: int
+    W: int
+
+    @classmethod
+    def of(cls, lp) -> "Geometry":
+        return cls(lp.B, lp.gy, lp.gx, lp.H, lp.W)
+
+
+def place(tape: torch.Tensor, lp, inv_order=None) -> torch.Tensor:
     """Phase 2: the tape's coefficient tokens as qimg i32[B, 3, H, W] on the
     tape's device (the port of _placer_fn / place_device).
 
     `tape` is i32[T, L] with any T that holds every lane's steps; rows
-    past them are zero. Runs one image at a time, which bounds the (lanes,
-    chains, 64) index arrays to one image's share. Its pieces, in order:
-    lane_major (transpose), chain_cumsum, chain_starts (searchsorted),
-    chain_coeffs (gather), to_raster (permutation)."""
+    past them are zero. lp is a LanePlan, or its Geometry with inv_order,
+    the plan's i64[B, 3, 64] on the tape's device. Runs one image at a
+    time, which bounds the (lanes, chains, 64) index arrays to one image's
+    share. Its pieces, in order: lane_major (transpose), chain_cumsum,
+    chain_starts (searchsorted), chain_coeffs (gather), to_raster
+    (permutation)."""
     dev = tape.device
     g = lp.gy * lp.gx
     if tape.shape[1] != lp.B * g:
@@ -410,7 +459,8 @@ def place(tape: torch.Tensor, lp: LanePlan) -> torch.Tensor:
                          "groups")
     tl_all = lane_major(tape)
     q = chain_queries(g, dev)
-    inv = torch.from_numpy(np.ascontiguousarray(lp.inv_order)).to(dev)
+    inv = inv_order if inv_order is not None else torch.from_numpy(
+        np.ascontiguousarray(lp.inv_order)).to(dev)
     out = torch.empty((lp.B, 3, lp.H, lp.W), dtype=torch.int32, device=dev)
     for b in range(lp.B):
         tl = tl_all[b * g:(b + 1) * g]
@@ -464,7 +514,7 @@ def to_raster(coeff: torch.Tensor, inv_b: torch.Tensor,
     [3, H, W], through the coefficient order inv_b [3, 64]."""
     # (groups, chains, 64) -> (gy, gx, by, bx, 3, 64); j -> ci (1, 0, 2)
     c6 = coeff.reshape(lp.gy, lp.gx, GROUP_BLOCKS, GROUP_BLOCKS, 3, 64)
-    c6 = c6[..., [1, 0, 2], :]
+    c6 = torch.cat([c6[..., 1:2, :], c6[..., 0:1, :], c6[..., 2:3, :]], -2)
     # raster position p takes chain step inv[ci, p] (0: unset)
     ib = inv_b.expand(c6.shape)
     perm = torch.where(ib == 0, 0, c6.gather(5, ib))

@@ -49,10 +49,12 @@ _I = ctypes.c_int
 _L = ctypes.c_longlong
 _F = ctypes.c_float
 _SIGNATURES = {
-    # qimg, q16, qf, dc, ytox, ytob, dm, igs, inv8, qbias, x_dm_mult,
+    # inv8 (host), device
+    "jxl_dequant_idct8_tables": (_P, _I),
+    # qimg, q16, qf, dc, ytox, ytob, dm, igs, qb0..qb3, x_dm_mult,
     # b_dm_mult, B, H, W, nty, ntx, out, stream, device
-    "jxl_dequant_idct8": (_P, _I, _P, _P, _P, _P, _P, _P, _P, _P, _F, _F,
-                          _I, _I, _I, _I, _I, _P, _P, _I),
+    "jxl_dequant_idct8": (_P, _I, _P, _P, _P, _P, _P, _P, _F, _F, _F, _F,
+                          _F, _F, _I, _I, _I, _I, _I, _P, _P, _I),
     # in, out, inv_sigma, sad_mul, gab, first, last, u8, cs, sigma_scale,
     # opsin, cbrt_bias, bias, B, H, W, stream, device
     "jxl_render_tail": (_P, _P, _P, _P, _P, _I, _I, _I, _P, _P, _P, _F, _F,

@@ -33,7 +33,6 @@
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-#include <string.h>
 
 namespace {
 
@@ -214,29 +213,35 @@ dequant_idct8_kernel(const QT* __restrict__ qimg, const int* __restrict__ qf,
 
 }  // namespace
 
+// inv8_host f32[64], the IDCT8 matrix, in host memory: copies it into the
+// kernel's constant table on `device`. Synchronous; call it once a device
+// before the first jxl_dequant_idct8 there (never while a stream of the
+// device captures a graph: the copy reads pageable host memory). Returns
+// the CUDA error code.
+extern "C" int jxl_dequant_idct8_tables(const float* inv8_host, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaMemcpyToSymbol(c_inv8, inv8_host, sizeof(c_inv8));
+}
+
 // qimg: int16 (q16 != 0) or int32 [B,3,H,W], 16-byte aligned; qf int32
 // [B,H/8,W/8]; dc f32 [B,3,H/8,W/8]; ytox/ytob int32 [B,nty,ntx]; dm f32
-// [3,8,8], 16-byte aligned; igs f32 [B]; inv8_host f32[64] and
-// qbias_host f32[4] in host memory; out f32 [B,3,H,W], 16-byte aligned. H
-// and W are multiples of 8. Launches on `stream` and returns
-// cudaGetLastError().
+// [3,8,8], 16-byte aligned; igs f32 [B]; qb0..qb3 the quant bias
+// (DEFAULT_QUANT_BIAS), by value; out f32 [B,3,H,W], 16-byte aligned. H
+// and W are multiples of 8; jxl_dequant_idct8_tables has run on `device`.
+// Reads no host memory, so a graph capture can record it. Launches on
+// `stream` and returns cudaGetLastError().
 extern "C" int jxl_dequant_idct8(const void* qimg, int q16, const int* qf,
                                  const float* dc, const int* ytox,
                                  const int* ytob, const float* dm,
-                                 const float* igs, const float* inv8_host,
-                                 const float* qbias_host, float x_dm_mult,
+                                 const float* igs, float qb0, float qb1,
+                                 float qb2, float qb3, float x_dm_mult,
                                  float b_dm_mult, int B, int H, int W,
                                  int nty, int ntx, float* out, void* stream,
                                  int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  // the same 256 bytes every launch, ordered on the launch's stream: no
-  // per-device state to track, and ~us against the kernel's ~ms
-  err = cudaMemcpyToSymbolAsync(c_inv8, inv8_host, sizeof(c_inv8), 0,
-                                cudaMemcpyHostToDevice, (cudaStream_t)stream);
-  if (err != cudaSuccess) return (int)err;
-  QuantBias qb;
-  memcpy(qb.b, qbias_host, sizeof(qb.b));
+  const QuantBias qb = {{qb0, qb1, qb2, qb3}};
   const dim3 grid((W / 8 + kBlocksPerCta - 1) / kBlocksPerCta, H / 8, B);
   cudaStream_t s = (cudaStream_t)stream;
   if (q16) {

@@ -5,7 +5,10 @@ CPU tensor returns its plain twin from ops/pipeline.py. Given a CUDA
 tensor it launches its kernel (built from ops/csrc by ops/build.py) on
 the current stream, or raises; no path falls back. Each wrapper adds
 one to its launch counter (base/device.py) where it launches, and
-nowhere else.
+nowhere else. No launch reads host memory, so a program's capture
+(ops/programs.py) can record any of them: K1's IDCT8 table is copied
+into its constant memory once a device (_k1_tables), scalars go by
+value.
 
 dequant_idct8 (ops/csrc/dequant_idct8.cu) replaces TPU kernel K1,
   pallas_kernels.py dequant_cfl_pallas, and fuses the DC insert and
@@ -31,13 +34,16 @@ decode_pixels_hybrid and decode_render_blocks are the block-layout
 routes, the counterparts of pallas_kernels.py decode_pixels_hybrid and
 pipeline.py decode_render: the coefficients i32[..., 3, nby, nbx, 8, 8]
 become one contiguous image-layout copy, which one dequant_idct8 launch
-reads; decode_render_blocks then launches render_tail once. Their plain
-twins are pipeline.decode_pixels and pipeline.decode_render.
+reads; decode_render_blocks then launches render_tail once. On CUDA
+each is a program, "dec" and "dec_full" (the JAX package's jitted dec
+and dec_full). Their plain twins are pipeline.decode_pixels and
+pipeline.decode_render.
 """
 
 from __future__ import annotations
 
 import ctypes
+import threading
 
 import numpy as np
 import torch
@@ -45,8 +51,9 @@ import torch
 from ..base.device import launch_counter
 from . import pipeline
 from .ans_kernel import NZ_WIDTH, ZD_WIDTH, LaneTensors, ans_decode_plain
+from . import programs
 from .build import load as load_kernels
-from .staging import per_block
+from .staging import UNEVEN_SIGMA, block_values, per_block
 
 DEQUANT_IDCT8_LAUNCHES = launch_counter("dequant_idct8")
 RENDER_TAIL_LAUNCHES = launch_counter("render_tail")
@@ -91,6 +98,38 @@ def _launch(name: str, rc: int) -> None:
         raise RuntimeError(f"{name}: CUDA error {rc} at launch")
 
 
+_K1_TABLES: set = set()
+_K1_LOCK = threading.Lock()
+
+
+def _k1_tables(device: torch.device) -> None:
+    """dequant_idct8.cu's IDCT8 table in its constant memory on `device`,
+    copied once a device, at the first launch there (an eager call: a
+    program's capture replays a launch that came before it)."""
+    if device.index in _K1_TABLES:
+        return
+    with _K1_LOCK:
+        if device.index not in _K1_TABLES:
+            _launch("dequant_idct8 tables",
+                    load_kernels().jxl_dequant_idct8_tables(
+                        pipeline._consts()["inv8"].ctypes.data,
+                        device.index))
+            _K1_TABLES.add(device.index)
+
+
+def _scales(inv_global_scale, device) -> torch.Tensor:
+    """inv_global_scale (a float, one an image, or a tensor) as f32[n] on
+    `device`; a float is written by a fill kernel, not uploaded."""
+    if isinstance(inv_global_scale, torch.Tensor):
+        return inv_global_scale.to(device=device,
+                                   dtype=torch.float32).reshape(-1)
+    if np.ndim(inv_global_scale) == 0:
+        return torch.full((1,), float(inv_global_scale),
+                          dtype=torch.float32, device=device)
+    return torch.as_tensor(inv_global_scale, dtype=torch.float32,
+                           device=device).reshape(-1)
+
+
 def dequant_idct8(qimg, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
                   x_dm_mult, b_dm_mult):
     """Dequant + AdjustQuantBias + CfL + DC insert + IDCT8.
@@ -106,11 +145,10 @@ def dequant_idct8(qimg, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
     dev = qimg.device
     _require(dev.type == "cuda", f"dequant_idct8: device {dev}")
     single = qimg.dim() == 3
-    igs = torch.as_tensor(inv_global_scale, dtype=torch.float32, device=dev)
+    igs = _scales(inv_global_scale, dev)
     if single:
         qimg, qf, dc, ytox_map, ytob_map = (
             t.unsqueeze(0) for t in (qimg, qf, dc, ytox_map, ytob_map))
-    igs = igs.reshape(-1)
     _require(qimg.dim() == 4 and qimg.shape[1] == 3,
              f"dequant_idct8: qimg shape {tuple(qimg.shape)}")
     bsz, _, h, w = qimg.shape
@@ -133,13 +171,14 @@ def dequant_idct8(qimg, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
     _require(qimg.data_ptr() % 16 == 0 and dm.data_ptr() % 16 == 0,
              "dequant_idct8: qimg and dm are not 16-byte aligned")
     out = torch.empty((bsz, 3, h, w), dtype=torch.float32, device=dev)
-    k = pipeline._consts()
+    _k1_tables(dev)
+    qb = [float(v) for v in pipeline._consts()["qbias"]]
     _launch("dequant_idct8", load_kernels().jxl_dequant_idct8(
         qimg.data_ptr(), int(qimg.dtype == torch.int16), qf.data_ptr(),
         dc.data_ptr(), ytox_map.data_ptr(), ytob_map.data_ptr(),
-        dm.data_ptr(), igs.data_ptr(), k["inv8"].ctypes.data,
-        k["qbias"].ctypes.data, float(x_dm_mult), float(b_dm_mult),
-        bsz, h, w, nty, ntx, out.data_ptr(), _stream(dev), dev.index))
+        dm.data_ptr(), igs.data_ptr(), *qb, float(x_dm_mult),
+        float(b_dm_mult), bsz, h, w, nty, ntx, out.data_ptr(), _stream(dev),
+        dev.index))
     DEQUANT_IDCT8_LAUNCHES.add()
     return out[0] if single else out
 
@@ -156,8 +195,7 @@ def _image_args(qcoeffs, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
     """dequant_idct8's arguments for block-layout coefficients: one
     contiguous image-layout copy of them, the global scale as one f32 an
     image."""
-    igs = torch.as_tensor(inv_global_scale, dtype=torch.float32,
-                          device=qcoeffs.device).reshape(-1)
+    igs = _scales(inv_global_scale, qcoeffs.device)
     return (pipeline.blocks_to_image(qcoeffs).contiguous(), qf, dc, ytox_map,
             ytob_map, dm, igs.expand(qf[..., 0, 0].numel()).contiguous(),
             x_dm_mult, b_dm_mult)
@@ -187,7 +225,27 @@ def decode_pixels_hybrid(qcoeffs, qf, dc, ytox_map, ytob_map, dm,
             x_dm_mult, b_dm_mult)
     if qcoeffs.device.type == "cpu":
         return pipeline.decode_pixels(*args)
-    return pipeline.xyb_to_rgb(dequant_idct8(*_image_args(*args)))
+    return programs.run(
+        "dec", (), _pixels_program, qcoeffs, qf, dc, ytox_map, ytob_map, dm,
+        _input_scale(inv_global_scale), x_dm_mult=float(x_dm_mult),
+        b_dm_mult=float(b_dm_mult), device=qcoeffs.device)
+
+
+def _input_scale(inv_global_scale):
+    """inv_global_scale as a program input (a float becomes a 0-d f32
+    array, so that the program takes it as data, as the JAX one does)."""
+    if isinstance(inv_global_scale, torch.Tensor):
+        return inv_global_scale
+    return np.asarray(inv_global_scale, dtype=np.float32)
+
+
+def _pixels_program(qcoeffs, qf, dc, ytox_map, ytob_map, dm,
+                    inv_global_scale, x_dm_mult, b_dm_mult):
+    """decode_pixels_hybrid's program (the JAX package's jitted `dec`,
+    with the colour transform): the layout copy, K1, xyb_to_rgb."""
+    return pipeline.xyb_to_rgb(dequant_idct8(*_image_args(
+        qcoeffs, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
+        x_dm_mult, b_dm_mult)))
 
 
 def decode_render_blocks(qcoeffs, qf, dc, ytox_map, ytob_map, dm,
@@ -211,23 +269,50 @@ def decode_render_blocks(qcoeffs, qf, dc, ytox_map, ytob_map, dm,
     _require(epf_iters in pipeline.EPF_CHAINS,
              f"decode_render_blocks: epf_iters {epf_iters}")
     _check_blocks("decode_render_blocks", qcoeffs)
-    sigma = per_block(inv_sigma_px, "decode_render_blocks") \
-        if epf_iters else None
     args = (qcoeffs, qf, dc, ytox_map, ytob_map, dm, inv_global_scale,
             x_dm_mult, b_dm_mult)
     if qcoeffs.device.type == "cpu":
+        if epf_iters:
+            per_block(inv_sigma_px, "decode_render_blocks")
         return pipeline.decode_render(
             *args, gab_kernels, inv_sigma_px, sad_mul, channel_scale,
             epf_iters, to_rgb, pass0_sigma_scale, pass2_sigma_scale)
-    image_args = _image_args(*args)
+    out, uneven = programs.run(
+        "dec_full", (epf_iters,), _render_blocks_program, qcoeffs, qf, dc,
+        ytox_map, ytob_map, dm, _input_scale(inv_global_scale), gab_kernels,
+        inv_sigma_px if epf_iters else None, sad_mul,
+        x_dm_mult=float(x_dm_mult), b_dm_mult=float(b_dm_mult),
+        channel_scale=tuple(float(c) for c in channel_scale),
+        epf_iters=int(epf_iters), to_rgb=bool(to_rgb),
+        pass0_sigma_scale=float(pass0_sigma_scale),
+        pass2_sigma_scale=float(pass2_sigma_scale), device=qcoeffs.device)
+    if bool(uneven):
+        raise ValueError(UNEVEN_SIGMA.format("decode_render_blocks"))
+    return out
+
+
+def _render_blocks_program(qcoeffs, qf, dc, ytox_map, ytob_map, dm,
+                           inv_global_scale, gab_kernels, inv_sigma_px,
+                           sad_mul, x_dm_mult, b_dm_mult, channel_scale,
+                           epf_iters, to_rgb, pass0_sigma_scale,
+                           pass2_sigma_scale):
+    """decode_render_blocks' program (the JAX package's jitted
+    `dec_full`): the layout copy, K1, then K2 unless no filter runs.
+    Returns (the image, a device flag set where inv_sigma_px is not
+    constant on an 8x8 block), the flag read after the call."""
+    image_args = _image_args(qcoeffs, qf, dc, ytox_map, ytob_map, dm,
+                             inv_global_scale, x_dm_mult, b_dm_mult)
+    uneven = torch.zeros((), dtype=torch.bool, device=qcoeffs.device)
     if gab_kernels is None and not epf_iters:
         xyb = dequant_idct8(*image_args)
-        return pipeline.xyb_to_rgb(xyb) if to_rgb else xyb
+        return (pipeline.xyb_to_rgb(xyb) if to_rgb else xyb), uneven
+    sigma = None
+    if epf_iters:
+        sigma, uneven = block_values(inv_sigma_px)
+        sigma = sigma.contiguous()
     return pipeline.decode_render_image(
-        *image_args, gab_kernels,
-        None if sigma is None else sigma.contiguous(), sad_mul,
-        channel_scale, epf_iters, bool(to_rgb), pass0_sigma_scale,
-        pass2_sigma_scale)
+        *image_args, gab_kernels, sigma, sad_mul, channel_scale, epf_iters,
+        to_rgb, pass0_sigma_scale, pass2_sigma_scale), uneven
 
 
 def _launch_tail(name, xyb, gab_kernels, inv_sigma, sad_mul,

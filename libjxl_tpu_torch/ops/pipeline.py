@@ -36,6 +36,7 @@ from ..io.headers import (
     OPSIN_ABSORBANCE_BIAS,
     OPSIN_ABSORBANCE_MATRIX,
 )
+from . import programs
 from .dct import fwd_matrix, inv_matrix
 
 COLOR_TILE_BLOCKS = 8
@@ -64,7 +65,8 @@ def _consts():
 
 
 def _const(name: str, device) -> torch.Tensor:
-    return torch.as_tensor(_consts()[name], device=device)
+    """_consts()[name] as a tensor on `device`, uploaded once a device."""
+    return programs.constant(name, device, lambda: _consts()[name])
 
 
 def _mirror_index(n: int, pad: int, device) -> torch.Tensor:
@@ -494,6 +496,15 @@ def scatter_tiles(acc5, pix, ys, xs):
     return acc5
 
 
+def _over(v, t: torch.Tensor) -> torch.Tensor:
+    """v / t for v a float, or one f32 on t's device (a program's input,
+    divided without a host sync), in the form torch gives `float / t`:
+    t.reciprocal() * v, so that both give the same bits."""
+    if isinstance(v, torch.Tensor):
+        return t.reciprocal() * v.to(torch.float32).reshape(())
+    return float(v) / t
+
+
 def render_size_passes(xyb, qimg, qf, dc, ytox_map, ytob_map,
                        inv_global_scale, x_dm_mult, b_dm_mult, size_passes,
                        size_shapes, class_map):
@@ -501,8 +512,8 @@ def render_size_passes(xyb, qimg, qf, dc, ytox_map, ytob_map,
     pass i + 1 taken from that dense pass's output (a new tensor)."""
     _, h, w = xyb.shape
     cls_px = _repeat2(class_map, 8)
-    scaled_px = _block_to_px(float(inv_global_scale) / qf.to(torch.float32),
-                             h, w)
+    scaled_px = _block_to_px(_over(inv_global_scale,
+                                   qf.to(torch.float32)), h, w)
     tile_px = 8 * COLOR_TILE_BLOCKS
     xcc_px = BASE_X + _repeat2(ytox_map.to(torch.float32),
                                tile_px)[:h, :w] / COLOR_FACTOR
@@ -934,7 +945,7 @@ def fit_cfl(co: torch.Tensor, color_factor: float = 84.0,
     _, nby, nbx, _, _ = co.shape
     tby, tbx = nby // COLOR_TILE_BLOCKS, nbx // COLOR_TILE_BLOCKS
     mask = torch.ones((8, 8), dtype=torch.float32, device=co.device)
-    mask[0, 0] = 0.0
+    mask[0, 0].fill_(0.0)  # a fill, not a host copy: capture-safe
     cm = co * mask
     t = cm.reshape(3, tby, COLOR_TILE_BLOCKS, tbx, COLOR_TILE_BLOCKS, 64)
     ys = t[1]
@@ -1012,8 +1023,9 @@ def encode_step_xyb(xyb, dm_inv, dm, inv_global_scale, base_quant,
 
     def dz(vals, c):
         # dead-zone thresholds (QuantizeBlockAC, enc_group.cc:46-91)
-        thr = torch.as_tensor(_deadzone_thresholds(1, 1, c),
-                              dtype=torch.float32, device=dev)
+        thr = programs.constant(
+            f"deadzone{c}", dev, lambda: np.asarray(
+                _deadzone_thresholds(1, 1, c), dtype=np.float32))
         return torch.where(vals.abs() < thr, 0.0, torch.round(vals))
 
     dm_inv = torch.as_tensor(dm_inv, dtype=torch.float32, device=dev)
@@ -1025,7 +1037,7 @@ def encode_step_xyb(xyb, dm_inv, dm, inv_global_scale, base_quant,
     qb = dz((co[2] - b_cc * dy) * dm_inv[2]
             / (scaled * float(b_dm_mult)), 2)
     q = torch.stack([qx, qy, qb]).to(torch.int32)
-    q[:, :, :, 0, 0] = 0
+    q[:, :, :, 0, 0].fill_(0)
     dc = co[:, :, :, 0, 0]
     return q, dc, qf, ytox_map, ytob_map, sharp
 

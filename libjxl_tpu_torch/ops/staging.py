@@ -69,14 +69,26 @@ def to_device(obj, dev):
     return obj
 
 
+UNEVEN_SIGMA = ("{}: inv_sigma_px is not constant on each 8x8 block "
+                "(render_tail reads sigma per block)")
+
+
+def block_values(inv_sigma_px):
+    """(per block, uneven): the per-pixel EPF inverse sigma f32[..., H, W]
+    (H, W multiples of 8) at each block's first pixel, as render_tail
+    reads it, and a 0-d bool tensor on its device, set where some block
+    is not constant. No host sync: a program's form of per_block."""
+    blocks = inv_sigma_px[..., ::8, ::8]
+    uneven = (blocks.repeat_interleave(8, -2).repeat_interleave(8, -1)
+              != inv_sigma_px).any()
+    return blocks, uneven
+
+
 def per_block(inv_sigma_px, what: str) -> torch.Tensor:
     """The per-pixel EPF inverse sigma f32[..., H, W] (H, W multiples of
     8; a numpy array or a tensor) as render_tail reads it, per block:
     raises unless it is constant on every 8x8 block."""
-    px = torch.as_tensor(inv_sigma_px)
-    blocks = px[..., ::8, ::8]
-    if not torch.equal(blocks.repeat_interleave(8, -2)
-                       .repeat_interleave(8, -1), px):
-        raise ValueError(f"{what}: inv_sigma_px is not constant on each "
-                         "8x8 block (render_tail reads sigma per block)")
+    blocks, uneven = block_values(torch.as_tensor(inv_sigma_px))
+    if bool(uneven):
+        raise ValueError(UNEVEN_SIGMA.format(what))
     return blocks

@@ -219,9 +219,13 @@ def _device_strip_emitter(state, fh, device, mark=None):
     mark, when given, is decode_render_image's timing hook, called also
     as mark("strip", None) as a strip's render begins and mark("upload",
     (args, kwargs)) once its inputs are on the device, with the arguments
-    the strip's decode_render_image call then gets."""
+    the strip's decode_render_image call then gets, and the strip
+    renders eagerly; without mark each strip runs the "dec_image" program
+    (api/tpu_codec.render_image), so the strips of one shape replay one
+    CUDA graph."""
     import torch
 
+    from ..api.tpu_codec import render_image
     from ..ops.staging import (block_sigma, dequant_tables, f32,
                                gab_kernels, sad_mul, to_device)
 
@@ -229,6 +233,7 @@ def _device_strip_emitter(state, fh, device, mark=None):
     lf = fh.loop_filter
     gdim_b = fd.group_dim // 8
     w = fd.xsize_blocks * 8
+    timed = mark is not None
     mark = mark or (lambda stage, t: None)
     # per block: the strip takes its rows of the frame's sigma
     inv_sigma_all = block_sigma(state, lf)
@@ -263,20 +268,29 @@ def _device_strip_emitter(state, fh, device, mark=None):
         comp_y0 = b0 * 8
         th = min(comp_h, fd.ysize - comp_y0)
         ts = (th, fd.xsize) if (th, fd.xsize) != (comp_h, w) else None
-        with torch.inference_mode():
-            args = to_device((
-                comp, state.raw_quant_field[b0:b1].astype(np.int32),
-                state.dc[:, b0:b1].astype(np.float32),
-                state.ytox_map[t0:t1].astype(np.int32),
-                state.ytob_map[t0:t1].astype(np.int32),
-                inv_sigma_all[b0:b1], sad_mul(lf, comp_h, w)), device)
-            qimg, qf, dc, ytox, ytob, isg, sad = args
-            args = (qimg, qf, dc, ytox, ytob, dm, igs, xdm, bdm, gabk, isg,
-                    sad, cs, int(lf.epf_iters))
-            kw = dict(to_rgb="u8srgb", pass0_sigma_scale=p0,
-                      pass2_sigma_scale=p2, true_size=ts)
-            mark("upload", (args, kw))
-            u8 = decode_render_image(*args, **kw, mark=mark).cpu().numpy()
+        arrays = (comp, state.raw_quant_field[b0:b1].astype(np.int32),
+                  state.dc[:, b0:b1].astype(np.float32),
+                  state.ytox_map[t0:t1].astype(np.int32),
+                  state.ytob_map[t0:t1].astype(np.int32),
+                  inv_sigma_all[b0:b1], sad_mul(lf, comp_h, w))
+        kw = dict(to_rgb="u8srgb", pass0_sigma_scale=p0,
+                  pass2_sigma_scale=p2, true_size=ts)
+        if not timed:
+            qimg, qf, dc, ytox, ytob, isg, sad = arrays
+            u8 = render_image((qimg, qf, dc, ytox, ytob, dm, igs, xdm, bdm,
+                               gabk, isg, sad, cs, int(lf.epf_iters)),
+                              dict(kw, extra_tiles=None, tile_shapes=None,
+                                   size_passes=None, size_shapes=None,
+                                   class_map=None), device)
+        else:
+            with torch.inference_mode():
+                qimg, qf, dc, ytox, ytob, isg, sad = to_device(arrays,
+                                                               device)
+                args = (qimg, qf, dc, ytox, ytob, dm, igs, xdm, bdm, gabk,
+                        isg, sad, cs, int(lf.epf_iters))
+                mark("upload", (args, kw))
+                u8 = decode_render_image(*args, **kw,
+                                         mark=mark).cpu().numpy()
         rows = cur_q.shape[1]
         return u8[top_b * 8:top_b * 8 + rows]
 

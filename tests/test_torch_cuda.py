@@ -876,3 +876,132 @@ def test_entry_on_card_matches_its_twin(cuda):
     torch.testing.assert_close(xyb, tpl.decode_xyb(*args, 1024.0, 1.0, 1.0),
                                rtol=1e-5, atol=1e-5)
     assert torch.equal(got, tpl.xyb_to_rgb(xyb))
+
+
+# the program layer (libjxl_tpu_torch/ops/programs.py) ---------------------
+
+def _same(a, b) -> bool:
+    """Bitwise equality of two program results (arrays, tensors, bytes
+    and tuples of them)."""
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same(x, y) for x, y in zip(a, b))
+    if isinstance(a, torch.Tensor):
+        return a.dtype == b.dtype and torch.equal(a.cpu(), b.cpu())
+    if isinstance(a, np.ndarray):
+        return a.dtype == b.dtype and np.array_equal(a, b)
+    return a == b
+
+
+def _three_calls(name, fn, *args, **kw):
+    """fn(*args, **kw) three times through the program `name`, from an
+    empty cache: eager, capture + replay, replay. Returns the program, the
+    three results and the launches of each."""
+    from libjxl_tpu_torch.ops import programs
+
+    programs.clear()
+    outs, launches = [], []
+    for _ in range(3):
+        out, n = _launched(fn, *args, **kw)
+        outs.append(out)
+        launches.append(n)
+    progs = [p for p in programs.programs(torch.device("cuda", 0))
+             if p.name == name]
+    assert len(progs) == 1, [p.name for p in progs]
+    return progs[0], outs, launches
+
+
+def _program_cases():
+    """(program name, fn, args) for each of the port's programs, on small
+    inputs."""
+    from libjxl_tpu_torch.api import codestream, tpu_codec
+    from libjxl_tpu_torch.vardct import streaming
+    import pathlib
+
+    rng = np.random.default_rng(23)
+    batch = [codestream.encode_lossy(
+        np.clip(rng.normal(120, 30, (100, 132, 3)), 0, 255).astype(np.uint8),
+        distance=1.0, effort=3, device=None) for _ in range(2)]
+    e5 = codestream.encode_lossy(_photo(256, 256, 3), distance=1.0, effort=5,
+                                 device=None)
+    jpeg = (pathlib.Path(__file__).resolve().parent / "data"
+            / "conformance" / "jpeg_recon.jxl").read_bytes()
+    (blocks, qf, dc, ytox, ytob, dm, igs), ispx, gabk, sad = _block_inputs(
+        96, 2, 16, 24)
+    t = [_t(a).to("cuda") for a in (blocks, qf, dc, ytox, ytob, dm, igs,
+                                    ispx, sad, gabk)]
+    chunk = rng.uniform(0, 1, (3, 136, 152)).astype(np.float32)
+    step = (rng.normal(0, 0.1, (3, 128, 128)).astype(np.float32),
+            rng.uniform(0.5, 2, (3, 8, 8)).astype(np.float32),
+            rng.uniform(0.5, 2, (3, 8, 8)).astype(np.float32),
+            0.125, 9.0, 1.0, 1.0,
+            rng.integers(1, 30, (16, 16)).astype(np.int32), "cuda")
+    return {
+        "batch": (tpu_codec.decode_batch, (batch, "cuda")),
+        "dec_image": (lambda d: codestream.decode(d, device="cuda")[0],
+                      (e5,)),
+        "dec_sub": (lambda d: codestream.decode(d, device="cuda")[0],
+                    (jpeg,)),
+        "enc": (tpu_codec.encode_lossy_tpu, (_photo(128, 160, 4), 1.0)),
+        "chunk_prep": (streaming.prep, (chunk, "cuda")),
+        "chunk_step": (streaming.step, step),
+        "dec": (kernels.decode_pixels_hybrid, (*t[:7], 0.8, 1.0)),
+        "dec_full": (kernels.decode_render_blocks,
+                     (*t[:7], 1.0, 1.0, t[9], t[7], t[8], CS, 2)),
+        "entropy": (lambda s: tpu_codec.decode_batch_entropy(s, "cuda")[0],
+                    (_entropy_streams(2, 24),)),
+    }
+
+
+PROGRAMS = ("batch", "dec_image", "dec_sub", "enc", "chunk_prep",
+            "chunk_step", "dec", "dec_full", "entropy")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", PROGRAMS)
+def test_program_replay_equals_its_eager_call(cuda, name):
+    """Each program's replay is its eager call bitwise, with the same
+    launches: the counters count each replay as its capture recorded."""
+    fn, args = _program_cases()[name]
+    prog, outs, launches = _three_calls(name, fn, *args)
+    assert prog.mode == "replay" and prog.calls == 3
+    assert prog.capture_s is not None
+    assert _same(outs[0], outs[1]) and _same(outs[0], outs[2])
+    assert launches[0] == launches[1] == launches[2]
+    assert prog.launches == {k: v for k, v in launches[0].items()
+                             if k in prog.launches}
+
+
+@pytest.mark.cuda
+def test_program_keeps_callers_outputs(cuda):
+    """A caller's outputs are its own: the next replay of the program
+    does not overwrite them."""
+    from libjxl_tpu_torch.ops import programs
+
+    programs.clear()
+    x = [torch.full((4,), float(i), device=cuda) for i in range(4)]
+    outs = [programs.run("double", (), lambda v: v * 2, xi, device=cuda)
+            for xi in x]
+    torch.cuda.synchronize()
+    assert [o.tolist() for o in outs] == [[2.0 * i] * 4 for i in range(4)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unsafe", ["item", "upload"])
+def test_capture_unsafe_program_raises(cuda, unsafe):
+    """A body that syncs with the host or uploads runs at its eager first
+    call, and its capture raises: nothing falls back to an eager run."""
+    from libjxl_tpu_torch.ops import programs
+
+    programs.clear()
+
+    def body(v):
+        if unsafe == "item":
+            return v * float(v.sum())
+        return v + torch.as_tensor(np.ones(4, np.float32), device=v.device)
+
+    x = torch.ones(4, device=cuda)
+    programs.run("unsafe", (), body, x, device=cuda)
+    with pytest.raises(RuntimeError):
+        programs.run("unsafe", (), body, x, device=cuda)
+    (prog,) = programs.programs(cuda)
+    assert prog.graph is None
