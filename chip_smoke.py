@@ -35,7 +35,9 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    (batch 16) with the launch counters reset just before, then
    decode_batch per batch of 16 and on the epf=3 and 1021x765 sets;
 6. drives the device-entropy decode: decode_batch_entropy on both
-   16-stream batches, with the counters reset just before, and times its
+   16-stream batches, with the counters reset just before, checks that
+   the two batches (other images of one geometry) shared one program,
+   which the second captured and replayed, and times the program body's
    stages on one batch;
 7. checks every image against the host decode (at most 1 u8 step), the
    pipelined output against the batched and the device-entropy outputs
@@ -651,6 +653,10 @@ def check_ans_decode(small_streams, batch, host_qimg, dev, card):
           f"max abs err {qimg_err}")
     del qimg, ref
     k3_ms = cuda_ms(lambda: kernels.ans_decode(lt), 3)
+    # on the device-entropy program's padded inputs (program_plan)
+    pt = ans_kernel.program_plan(lp).to(dev)
+    k3_padded_ms = cuda_ms(lambda: kernels.ans_decode(pt), 3)
+    del pt
     place_ms = cuda_ms(lambda: ans_kernel.place(tape, lp), 3)
     most, done = int(steps.max()), int(steps.sum())
     # the streams and tables read once; the tape words the lanes write
@@ -665,7 +671,8 @@ def check_ans_decode(small_streams, batch, host_qimg, dev, card):
         f"{most} steps"
     log(f"check ans_decode + place on {full}: qimg of all {len(batch)} "
         f"streams equal to the host entropy decode; prepare_batch_entropy "
-        f"{t_plan:.3f} s, ans_decode {k3_ms:.3f} ms, place {place_ms:.3f} "
+        f"{t_plan:.3f} s, ans_decode {k3_ms:.3f} ms (on the program's "
+        f"padded inputs {k3_padded_ms:.3f} ms), place {place_ms:.3f} "
         f"ms, steps min {int(steps.min())} max {most}, peak device memory "
         f"{peak_gb:.2f} GB")
     log(f"K3 ans_decode on {full}: {k3_ms:.3f} ms, {ns_per_step:.2f} ns a "
@@ -680,7 +687,8 @@ def check_ans_decode(small_streams, batch, host_qimg, dev, card):
             "ms": k3_ms, "ms_input": full, "ns_per_step": ns_per_step,
             "plain_ms": plain_ms,
             "plain_ms_input": small + " (host clock)", **k3_bound,
-            "ms_on_plain_input": small_ms, "place_ms": place_ms}
+            "ms_on_plain_input": small_ms, "place_ms": place_ms,
+            "ms_program_plan": k3_padded_ms}
 
 
 def counted(fn, *args, **kw):
@@ -3156,8 +3164,9 @@ def drive_programs(calls, dev, smi):
     clone of its outputs), and its largest host input copied from
     pageable and from pinned memory; the capture's host seconds; the
     device memory the cached program holds (slots, pool, after
-    empty_cache) and an eager call's peak above what was allocated before
-    it. Returns the phase's record."""
+    empty_cache; and as the cache counts it, Program.held) and an eager
+    call's peak above what was allocated before it. Returns the phase's
+    record."""
     import gc
 
     import torch
@@ -3212,6 +3221,7 @@ def drive_programs(calls, dev, smi):
         check(prog.mode == "replay", f"program {label}: {prog.mode} after "
               "its second call")
         replayed, n_replay, replay_host, replay_ev = mean_of(call)
+        prog_held = prog.held / 1e9
         gc.collect()
         torch.cuda.empty_cache()
         held = (torch.cuda.memory_reserved() - reserved) / 1e9
@@ -3219,11 +3229,16 @@ def drive_programs(calls, dev, smi):
         inputs, spec = programs.flatten((args, kw))
         on = programs.unflatten(spec, [programs._on(x, dev)
                                        for x in inputs])
+        def body():
+            return fn(*on[0], **{k: v for k, v in on[1].items()
+                                 if k not in ("device", "readback")})
+
+        # each after one untimed run, so that no cudaMalloc of the
+        # allocator emptied above is timed
         with torch.inference_mode():
-            _, _, body_host, body_ev = mean_of(
-                lambda: fn(*on[0], **{k: v for k, v in on[1].items()
-                                      if k not in ("device",
-                                                   "readback")}))
+            body()
+            _, _, body_host, body_ev = mean_of(body)
+        prog.graph.replay()
         _, _, graph_host, graph_ev = mean_of(prog.graph.replay)
         del on
         # the rest of a call: its host inputs' upload (eager) or their
@@ -3268,7 +3283,8 @@ def drive_programs(calls, dev, smi):
                                  if host_in else 0.0),
             "largest_input_pageable_ms": pageable_ms,
             "largest_input_pinned_ms": pinned_ms,
-            "eager_peak_gb": eager_peak, "held_gb": held}
+            "eager_peak_gb": eager_peak, "held_gb": held,
+            "cache_held_gb": prog_held}
         log(f"program {label} ({name}, {PROGRAM_CALLS[label][1]}): "
             f"launches {json.dumps(n_replay)}; call eager "
             f"{eager_host:.4f} ms, replay {replay_host:.4f} ms (host "
@@ -3278,7 +3294,8 @@ def drive_programs(calls, dev, smi):
             f"{prog.capture_s * 1e3:.2f} ms; upload {upload_ms:.4f} / slot "
             f"load {load_ms:.4f} ms, readback {back_ms:.4f} ms (host "
             f"clock); largest host input pageable {pageable_ms} / pinned "
-            f"{pinned_ms} ms; held {held:.3f} GB, eager peak "
+            f"{pinned_ms} ms; held {held:.3f} GB (the cache counts "
+            f"{prog_held:.3f}), eager peak "
             f"{eager_peak:.3f} GB; bitwise equal; {smi}")
         # nothing of this program outlives it: the next one's baseline
         del eager, captured, replayed, prog
@@ -3360,7 +3377,7 @@ def main():
     from libjxl_tpu_torch.base.device import (card_line,
                                               reset_launch_counts,
                                               resolve_device)
-    from libjxl_tpu_torch.ops import build
+    from libjxl_tpu_torch.ops import build, programs
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")
@@ -3501,6 +3518,16 @@ def main():
         check_images(outs, main_r[i * BATCH:(i + 1) * BATCH],
                      f"decode_batch_entropy batch {i}")
     log("decode_batch_entropy per batch of 16 == decode_pipelined, exactly")
+    # the batches hold other images of one geometry: they share one
+    # "entropy" program, which the first ran eagerly and the next
+    # captured and replayed
+    ent_progs = [p for p in programs.programs(dev) if p.name == "entropy"]
+    check(len(ent_progs) == 1 and ent_progs[0].mode == "replay"
+          and ent_progs[0].calls == batches,
+          "the device-entropy batches did not share one program: "
+          + repr([(p.key, p.calls, p.mode) for p in ent_progs]))
+    log(f"decode_batch_entropy: {batches} batches of other images, one "
+        f"program, captured at the second batch ({ent_progs[0].key})")
     # the stage split of the same path, in a run of its own: its stage
     # timer synchronizes the device at every stage's end
     stages = {}

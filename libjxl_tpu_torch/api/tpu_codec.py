@@ -57,7 +57,7 @@ from ..io.bits import BitReader, BitWriter
 from ..io.frame_header import FrameHeader
 from ..ops import ans_kernel, ans_tpu, kernels, pipeline, programs
 from ..ops.staging import (block_sigma, dequant_tables, f32, gab_kernels,
-                           sad_mul, to_device)
+                           sad_mul)
 from ..vardct import ac_strategy as acs
 from ..vardct.frame import decode_vardct_frame
 from .codestream import _skip_or_decode_preview, parse_codestream_header
@@ -304,19 +304,16 @@ def batch_from_numpy(args, config: BatchConfig, device="cuda"):
 
 
 class _Laps:
-    """Host-clock seconds of a path's stages, written into `stages` when
-    it is a dict: each call ends the stage begun by the previous one (or
-    by construction), after synchronizing the device, so a device stage
-    is timed to its end. With stages None it does nothing and never
-    synchronizes."""
+    """Host-clock seconds of a path's stages, written into `stages`: each
+    call ends the stage begun by the previous one (or by construction),
+    after synchronizing the device, so a device stage is timed to its
+    end. Called as lap(stage) or as a program body's mark(stage, value)."""
 
-    def __init__(self, stages, dev):
+    def __init__(self, stages: dict, dev):
         self.stages, self.dev = stages, dev
         self.t = time.perf_counter()
 
-    def __call__(self, name: str):
-        if self.stages is None:
-            return
+    def __call__(self, name: str, _value=None):
         if self.dev.type == "cuda":
             torch.cuda.synchronize(self.dev)
         t = time.perf_counter()
@@ -329,25 +326,16 @@ def _crop(config: BatchConfig, u8) -> list:
     return [u8[i, :th, :tw] for i in range(u8.shape[0])]
 
 
-def _render(config: BatchConfig, args, device, lap=None) -> list:
+def _render(config: BatchConfig, args, device) -> list:
     """Upload, render and read back one staged batch: a list of u8
     [ysize, xsize, 3] images cropped to the frame's true size. Runs the
     "batch" program, whose input slots take the arrays straight from the
     host, and reads its output back before the program runs again (so
     decode_pipelined's worker may render while the caller's thread
-    stages). `lap`, a _Laps, times the three stages instead, eagerly."""
-    if lap is None:
-        u8 = programs.run("batch", batch_key(config, len(args[0])),
-                          render_batch, *args, config=config,
-                          device=resolve_device(device), readback=True)
-        return _crop(config, u8)
-    renderer, inputs = batch_from_numpy(args, config, device)
-    lap("upload of the render arrays")
-    with torch.inference_mode():
-        px = renderer(*inputs)
-        lap("render")
-        u8 = px.cpu().numpy()
-    lap("readback")
+    stages)."""
+    u8 = programs.run("batch", batch_key(config, len(args[0])),
+                      render_batch, *args, config=config,
+                      device=resolve_device(device), readback=True)
     return _crop(config, u8)
 
 
@@ -446,19 +434,33 @@ def entropy_key(config: BatchConfig, lp) -> tuple:
     """The "entropy" program's key: the JAX path's _ENTROPY_PROGS key but
     its last field (the JAX kernel's interpret mode, which the port does
     not have), the lane-layout fields computed from the port's LanePlan
-    as the JAX ServePlan computes them."""
+    as the JAX ServePlan computes them. lp is the ans_kernel.program_plan
+    the program takes, whose alias_rows is rounded."""
     return (lp.B, *config.key, *ans_kernel.program_key(lp))
 
 
+# decode_batch_entropy's stages, in order (the keys of its `stages`)
+ENTROPY_STAGES = ("host parse + plan + lane plan",
+                  "upload of the lane plan and the render arrays",
+                  "ans_decode", "place", "render", "readback")
+
+
 def _entropy_program(lanes, inv_order, render_args, geometry, las, t_alloc,
-                     config):
+                     config, mark=None):
     """The device-entropy batch in one program (the JAX path's
     _ENTROPY_PROGS form): K3 over the whole t_alloc tape, its placement,
-    the batch render. Returns (u8 [B, H, W, 3], ok bool[L])."""
+    the batch render. Returns (u8 [B, H, W, 3], ok bool[L]). mark, a
+    timing hook, is called at the end of each stage (ENTROPY_STAGES)."""
+    mark = mark or (lambda stage, value: None)
+    mark("upload of the lane plan and the render arrays", lanes)
     lt = ans_kernel.LaneTensors(**lanes, las=las, t_alloc=t_alloc)
     tape, ok, _ = kernels.ans_decode(lt)
+    mark("ans_decode", tape)
     qimg = ans_kernel.place(tape, geometry, inv_order)
-    return render_batch(qimg, *render_args, config=config), ok
+    mark("place", qimg)
+    u8 = render_batch(qimg, *render_args, config=config)
+    mark("render", u8)
+    return u8, ok
 
 
 def _not_ok(ok) -> None:
@@ -476,19 +478,17 @@ def decode_batch_entropy(streams, device="cuda",
     decode_tpu_batch_entropy). Returns (images, info): uint8 (H, W, 3)
     images in input order, and info["path"] == "device_entropy".
 
-    On `device`, the "entropy" program (the JAX path's fused program):
-    the rANS decode (kernels.ans_decode) into a tape of the plan's
-    structural bound rounded up to ans_kernel.TAPE_STEP rows, the
-    placement of the whole tape into qimg (ans_kernel.place), which never
-    leaves the device, and the batch render (dequant_idct8 +
-    render_tail); then one readback of the images and the lanes' ok
-    flags. A dict `stages` takes the measurement route instead, eagerly:
-    upload of the lane plan; the rANS decode; the ok flags and step
-    counts read back, the placement of the tape rows that some lane
-    wrote; upload of the render arrays; the render; the readback, each
-    stage's host-clock seconds in `stages`, the device synchronized at
-    each stage's end (which costs the path its overlap, so time the
-    end-to-end rate without it).
+    On `device`, the "entropy" program (the JAX path's fused program) on
+    the batch's ans_kernel.program_plan: the rANS decode
+    (kernels.ans_decode) into a tape of the plan's structural bound
+    rounded up to ans_kernel.TAPE_STEP rows, the placement of the whole
+    tape into qimg (ans_kernel.place), which never leaves the device, and
+    the batch render (dequant_idct8 + render_tail); then one readback of
+    the images and the lanes' ok flags. Batches of one geometry and one
+    encoder setting share the program. A dict `stages` gets each of
+    ENTROPY_STAGES' host-clock seconds, the program's body run eagerly
+    with the device synchronized at each stage's end (which costs the
+    path its overlap, so time the end-to-end rate without it).
 
     Streams outside the device kernel's scope fall back, before anything
     is uploaded, to decode_batch with info["path"] == "host_entropy" and
@@ -497,35 +497,23 @@ def decode_batch_entropy(streams, device="cuda",
     the lanes; the batch is not decoded again on the host. A kernel that
     fails to build or launch raises."""
     dev = resolve_device(device)
-    lap = _Laps(stages, dev)
+    lap = None if stages is None else _Laps(stages, dev)
     try:
         config, render_args, lane_plan = prepare_batch_entropy(streams)
     except JXLError as e:
         return _host_fallback(streams, dev, str(e))
-    if stages is None:
-        lp = dataclasses.replace(
-            lane_plan, t_alloc=ans_kernel.tape_rows(lane_plan.t_alloc))
-        u8, ok = programs.run(
-            "entropy", entropy_key(config, lane_plan), _entropy_program,
-            lp.arrays(), lp.inv_order, render_args,
-            geometry=ans_kernel.Geometry.of(lp), las=lp.las,
-            t_alloc=lp.t_alloc, config=config, device=dev, readback=True)
-        _not_ok(ok)
-        return _crop(config, u8), {"path": "device_entropy"}
-    lap("host parse + plan + lane plan")
-    with torch.inference_mode():
-        lane_tensors = lane_plan.to(dev)
-        lap("upload of the lane plan")
-        tape, ok, steps = kernels.ans_decode(lane_tensors)
-        lap("ans_decode")
-        flags = torch.stack([ok.to(torch.int32), steps]).cpu().numpy()
-        _not_ok(flags[0])
-        qimg = ans_kernel.place(tape[:max(int(flags[1].max()), 1)],
-                                lane_plan)
-        del tape, lane_tensors
-        lap("ok/steps readback + place")
-    return _render(config, (qimg, *render_args), dev, lap), {
-        "path": "device_entropy"}
+    lp = ans_kernel.program_plan(lane_plan)
+    if lap is not None:
+        lap("host parse + plan + lane plan")
+    u8, ok = programs.run(
+        "entropy", entropy_key(config, lp), _entropy_program, lp.arrays(),
+        lp.inv_order, render_args, geometry=ans_kernel.Geometry.of(lp),
+        las=lp.las, t_alloc=lp.t_alloc, config=config, device=dev,
+        readback=True, mark=lap)
+    if lap is not None:
+        lap("readback")
+    _not_ok(ok)
+    return _crop(config, u8), {"path": "device_entropy"}
 
 
 # ------------------------------------------------ the single-image render
@@ -731,19 +719,32 @@ _IMAGE_ARGS = ("qimg", "qf", "dc", "ytox_map", "ytob_map", "dm",
                "inv_sigma", "sad_mul", "channel_scale", "epf_iters")
 
 
-def render_image(args, kw, device):
+def _image_program(mark=None, **named):
+    """The "dec_image" program's body: pipeline.decode_render_image on
+    render_image's arguments, by name. mark, a timing hook, is called as
+    mark("upload", (args, kwargs)) as the body begins, with its inputs on
+    the device as decode_render_image's positional and keyword arguments,
+    then by decode_render_image at the end of each of its stages."""
+    if mark is not None:
+        mark("upload", (tuple(named[k] for k in _IMAGE_ARGS),
+                        {k: v for k, v in named.items()
+                         if k not in _IMAGE_ARGS}))
+    return pipeline.decode_render_image(**named, mark=mark)
+
+
+def render_image(args, kw, device, mark=None):
     """pipeline.decode_render_image(*args, **kw) through the "dec_image"
     program (the JAX package's jitted dec_image) on `device`, read back
     as numpy: the single-image render of make_device_render and the
     strips of vardct/low_memory. args and kw as stage_image gives them
     (numpy arrays, the program's inputs; inv_global_scale goes in as one
-    f32 of data, as the JAX program takes it)."""
+    f32 of data, as the JAX program takes it). mark: _image_program's
+    timing hook; the body then runs eagerly."""
     named = dict(zip(_IMAGE_ARGS, args), **kw)
     named["inv_global_scale"] = np.asarray(named["inv_global_scale"],
                                            dtype=np.float32)
-    return programs.run("dec_image", image_key(named),
-                        pipeline.decode_render_image, device=device,
-                        readback=True, **named)
+    return programs.run("dec_image", image_key(named), _image_program,
+                        device=device, readback=True, mark=mark, **named)
 
 
 def _render_subsampled_device(state, fh, out, dev) -> bool:
@@ -947,12 +948,21 @@ def enc(rgb, dm_inv, dm, inv_global_scale, base_quant, x_dm_mult,
 
 
 def _encode_program(srgb, dm_inv, dm, inv_global_scale, base_quant,
-                    x_dm_mult, b_dm_mult, adaptive, cfl, gab, distance):
+                    x_dm_mult, b_dm_mult, adaptive, cfl, gab, distance,
+                    mark=None):
     """The "enc" program: the JAX package's jitted srgb2lin, then its
-    jitted enc, on sRGB f32[3, H, W]."""
-    return enc(pipeline.srgb2lin(srgb), dm_inv, dm, inv_global_scale,
-               base_quant, x_dm_mult, b_dm_mult, adaptive=adaptive, cfl=cfl,
-               gab=gab, distance=distance)
+    jitted enc, on sRGB f32[3, H, W]. mark, a timing hook, is called at
+    the end of its stages (ENCODE_STAGES' upload, srgb2lin, encode
+    step)."""
+    mark = mark or (lambda stage, value: None)
+    mark("upload", srgb)
+    rgb = pipeline.srgb2lin(srgb)
+    mark("srgb2lin", rgb)
+    out = enc(rgb, dm_inv, dm, inv_global_scale, base_quant, x_dm_mult,
+              b_dm_mult, adaptive=adaptive, cfl=cfl, gab=gab,
+              distance=distance)
+    mark("encode step", out)
+    return out
 
 
 def encode_lossy_tpu(image: np.ndarray, distance: float = 1.0,
@@ -968,9 +978,9 @@ def encode_lossy_tpu(image: np.ndarray, distance: float = 1.0,
     static arguments (adaptive, cfl, gab, distance); the scalars, which
     its torch ops take by value, in the program's key too). mark, when
     given, is called as mark(stage, value) at the end of each of
-    ENCODE_STAGES with the stage's output (a timing hook), and the step
-    runs eagerly."""
-    timed = mark is not None
+    ENCODE_STAGES with the stage's output (a timing hook), and the
+    program's body runs eagerly."""
+    hook = mark
     mark = mark or (lambda stage, value: None)
     from ..io.frame_header import CT_XYB, ENC_VARDCT, FT_REGULAR
     from ..io.headers import CodecMetadata, SizeHeader
@@ -1035,20 +1045,10 @@ def encode_lossy_tpu(image: np.ndarray, distance: float = 1.0,
     statics = dict(adaptive=adaptive_quant, cfl=cfl,
                    gab=bool(fh.loop_filter.gab),
                    distance=float(distance) if adaptive_quant else None)
-    if timed:
-        srgb_t, dm_inv_t, dm_t = to_device((srgb, dm_inv, dm), dev)
-        mark("upload", srgb_t)
-        with torch.inference_mode():
-            rgb = pipeline.srgb2lin(srgb_t)
-            mark("srgb2lin", rgb)
-            out = enc(rgb, dm_inv_t, dm_t, *scalars, **statics)
-            mark("encode step", out)
-            host = tuple(t.cpu().numpy() for t in out)
-    else:
-        host = programs.run(
-            "enc", tuple(statics.values()), _encode_program,
-            np.ascontiguousarray(srgb), dm_inv, dm, *scalars, **statics,
-            device=dev, readback=True)
+    host = programs.run(
+        "enc", tuple(statics.values()), _encode_program,
+        np.ascontiguousarray(srgb), dm_inv, dm, *scalars, **statics,
+        device=dev, readback=True, mark=hook)
     qimg, nz, dc, qf, ytox, ytob, sharp = host
     mark("readback", host)
     precomputed = {

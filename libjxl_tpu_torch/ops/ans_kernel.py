@@ -33,6 +33,8 @@ MAX_LANES = 1024     # the JAX plan's lane grid, 8 x 128
 # the JAX kernel's steps a call (F_TOT): the device-entropy program's tape
 # has a multiple of it rows, so that its key takes the JAX form
 TAPE_STEP = 120
+# the device-entropy program's alias tables have a multiple of it rows
+ALIAS_STEP = 8
 # the JAX ServePlan's rows of a zero-density LUT (zd_rows)
 ZD_ROWS = -(-((3 * ZD_COUNT + 3) // 4) // 128)
 SLACK_HW = 256       # zero halfwords after each lane's stream
@@ -117,6 +119,21 @@ def tape_rows(t_alloc: int) -> int:
     return -(-t_alloc // TAPE_STEP) * TAPE_STEP
 
 
+def program_plan(lp: "LanePlan") -> "LanePlan":
+    """lp as the device-entropy program takes it, so that batches of one
+    geometry and one encoder setting share a program: flat_hw zero-padded
+    to a power of two halfwords, the alias tables to a multiple of
+    ALIAS_STEP rows (entries past a table's own are never read), the tape
+    to tape_rows."""
+    flat = np.zeros(1 << (len(lp.flat_hw) - 1).bit_length(), np.uint16)
+    flat[:len(lp.flat_hw)] = lp.flat_hw
+    rows = -(-lp.alias_rows // ALIAS_STEP) * ALIAS_STEP
+    pad = ((0, 0), (0, (rows - lp.alias_rows) * 128))
+    return dataclasses.replace(
+        lp, flat_hw=flat, a1=np.pad(lp.a1, pad), a2=np.pad(lp.a2, pad),
+        alias_rows=rows, t_alloc=tape_rows(lp.t_alloc))
+
+
 def sublane_images(lane_img: np.ndarray) -> int:
     """The JAX ServePlan's n_per_sub: the most images whose lanes share
     one of its 8 sublanes of 128 lanes (at least 1)."""
@@ -130,7 +147,8 @@ def sublane_images(lane_img: np.ndarray) -> int:
 def program_key(lp: "LanePlan") -> tuple:
     """(alias_rows, zd_rows, las, n_per_sub, max_iters, t_alloc): the JAX
     ServePlan's fields in its _ENTROPY_PROGS key, from the same plan;
-    t_alloc is tape_rows of the plan's structural bound."""
+    t_alloc is tape_rows of the plan's structural bound. Of a
+    program_plan, alias_rows is its rounded count."""
     rows = tape_rows(lp.t_alloc)
     return (lp.alias_rows, ZD_ROWS, lp.las, sublane_images(lp.lane_img),
             rows // TAPE_STEP, rows)

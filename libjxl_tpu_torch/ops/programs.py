@@ -37,7 +37,9 @@ per-device constants come from constant(), data-dependent checks become
 device flags among the outputs that the caller reads after the call.
 
 The cache holds CACHE_SIZE programs a device and drops the least recently
-used first, with its graph and its memory pool.
+used first, with its graph and its memory pool; it drops them also while
+the device memory its captured programs hold (Program.held: input slots
+and graph pool) passes 1 / HELD_SHARE of the card's.
 """
 
 from __future__ import annotations
@@ -53,6 +55,9 @@ from ..base.device import launch_counter, recording_launches
 
 # programs kept a device (the JAX ans_kernel caches' lru_cache maxsize)
 CACHE_SIZE = 16
+# the captured programs of a device hold at most 1 / HELD_SHARE of its
+# memory (a graph pool of one 16 x 2048^2 batch is 2-3 GB)
+HELD_SHARE = 4
 
 _CACHES: dict[torch.device, collections.OrderedDict] = {}
 _CACHE_LOCK = threading.Lock()
@@ -170,6 +175,14 @@ def _side_stream(device: torch.device) -> torch.cuda.Stream:
     return s
 
 
+def _pool_bytes(device: torch.device, pool) -> int:
+    """The device bytes that the allocator's segments of memory pool
+    `pool` (a CUDA graph's) hold on `device`."""
+    return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+               if seg["device"] == device.index
+               and tuple(seg["segment_pool_id"]) == tuple(pool))
+
+
 class Program:
     """One function at one static key on one device: eager at its first
     call, captured at its second, replayed after (module docstring)."""
@@ -183,6 +196,7 @@ class Program:
         self.out = None         # the graph's output tree (its pool)
         self.launches = {}      # {counter: launches} of one replay
         self.capture_s = None   # host seconds of the capture
+        self.held = 0           # device bytes of its slots and its pool
         self.lock = threading.Lock()
 
     @property
@@ -202,6 +216,8 @@ class Program:
                 return out
             if mode == "capture":
                 self._capture(inputs)
+                if self.held:
+                    _trim(self.device, keep=self)
             else:
                 self._load(inputs)
             self._replay()
@@ -241,6 +257,8 @@ class Program:
         if not all(isinstance(t, torch.Tensor) for t in leaves):
             raise TypeError(f"program {self.name}: outputs must be tensors")
         self.graph, self.out, self.launches = graph, out, launches
+        self.held = _pool_bytes(self.device, graph.pool()) + sum(
+            t.untyped_storage().nbytes() for t in self.slots)
 
     def _replay(self) -> None:
         self.graph.replay()
@@ -263,6 +281,27 @@ def cached(name: str, key, spec, device: torch.device, fn) -> Program:
         else:
             cache.move_to_end(ck)
     return prog
+
+
+def held_limit(device: torch.device) -> int:
+    """The device bytes that the captured programs of `device` may hold."""
+    return torch.cuda.get_device_properties(device).total_memory \
+        // HELD_SHARE
+
+
+def _trim(device: torch.device, keep: Program) -> None:
+    """Drop the least recently used programs of `device` that hold memory,
+    but `keep`, while the memory they hold together passes held_limit."""
+    limit = held_limit(device)
+    with _CACHE_LOCK:
+        cache = _CACHES.get(device, {})
+        held = sum(p.held for p in cache.values())
+        for ck, prog in list(cache.items()):
+            if held <= limit:
+                break
+            if prog is not keep and prog.held:
+                held -= prog.held
+                del cache[ck]
 
 
 def programs(device) -> list[Program]:

@@ -216,15 +216,11 @@ def _device_strip_emitter(state, fh, device, mark=None):
     dequant + IDCT8 (dequant_idct8), the mirror at the frame edge, then
     Gaborish + EPF + sRGB u8 (render_tail). The 64-px halo exceeds the
     filters' 7-px reach, so the strip rows are those of the whole image.
-    mark, when given, is decode_render_image's timing hook, called also
-    as mark("strip", None) as a strip's render begins and mark("upload",
-    (args, kwargs)) once its inputs are on the device, with the arguments
-    the strip's decode_render_image call then gets, and the strip
-    renders eagerly; without mark each strip runs the "dec_image" program
-    (api/tpu_codec.render_image), so the strips of one shape replay one
-    CUDA graph."""
-    import torch
-
+    Each strip runs the "dec_image" program (api/tpu_codec.render_image),
+    so the strips of one shape replay one CUDA graph. mark, when given,
+    is the program body's timing hook (api/tpu_codec._image_program),
+    called also as mark("strip", None) as a strip's render begins, and
+    the strips render eagerly."""
     from ..api.tpu_codec import render_image
     from ..ops.staging import (block_sigma, dequant_tables, f32,
                                gab_kernels, sad_mul, to_device)
@@ -233,8 +229,6 @@ def _device_strip_emitter(state, fh, device, mark=None):
     lf = fh.loop_filter
     gdim_b = fd.group_dim // 8
     w = fd.xsize_blocks * 8
-    timed = mark is not None
-    mark = mark or (lambda stage, t: None)
     # per block: the strip takes its rows of the frame's sigma
     inv_sigma_all = block_sigma(state, lf)
     dm, gabk = to_device((dequant_tables(state), gab_kernels(lf)), device)
@@ -246,9 +240,8 @@ def _device_strip_emitter(state, fh, device, mark=None):
     p2 = f32(lf.epf_pass2_sigma_scale)
 
     def emit(prev_q, cur_q, nxt_q, gy):
-        from ..ops.pipeline import decode_render_image
-
-        mark("strip", None)
+        if mark is not None:
+            mark("strip", None)
 
         top_b = _HALO_B if prev_q is not None else 0
         bot_b = _HALO_B if nxt_q is not None else 0
@@ -268,29 +261,17 @@ def _device_strip_emitter(state, fh, device, mark=None):
         comp_y0 = b0 * 8
         th = min(comp_h, fd.ysize - comp_y0)
         ts = (th, fd.xsize) if (th, fd.xsize) != (comp_h, w) else None
-        arrays = (comp, state.raw_quant_field[b0:b1].astype(np.int32),
-                  state.dc[:, b0:b1].astype(np.float32),
-                  state.ytox_map[t0:t1].astype(np.int32),
-                  state.ytob_map[t0:t1].astype(np.int32),
-                  inv_sigma_all[b0:b1], sad_mul(lf, comp_h, w))
+        args = (comp, state.raw_quant_field[b0:b1].astype(np.int32),
+                state.dc[:, b0:b1].astype(np.float32),
+                state.ytox_map[t0:t1].astype(np.int32),
+                state.ytob_map[t0:t1].astype(np.int32), dm, igs, xdm, bdm,
+                gabk, inv_sigma_all[b0:b1], sad_mul(lf, comp_h, w), cs,
+                int(lf.epf_iters))
         kw = dict(to_rgb="u8srgb", pass0_sigma_scale=p0,
-                  pass2_sigma_scale=p2, true_size=ts)
-        if not timed:
-            qimg, qf, dc, ytox, ytob, isg, sad = arrays
-            u8 = render_image((qimg, qf, dc, ytox, ytob, dm, igs, xdm, bdm,
-                               gabk, isg, sad, cs, int(lf.epf_iters)),
-                              dict(kw, extra_tiles=None, tile_shapes=None,
-                                   size_passes=None, size_shapes=None,
-                                   class_map=None), device)
-        else:
-            with torch.inference_mode():
-                qimg, qf, dc, ytox, ytob, isg, sad = to_device(arrays,
-                                                               device)
-                args = (qimg, qf, dc, ytox, ytob, dm, igs, xdm, bdm, gabk,
-                        isg, sad, cs, int(lf.epf_iters))
-                mark("upload", (args, kw))
-                u8 = decode_render_image(*args, **kw,
-                                         mark=mark).cpu().numpy()
+                  pass2_sigma_scale=p2, true_size=ts, extra_tiles=None,
+                  tile_shapes=None, size_passes=None, size_shapes=None,
+                  class_map=None)
+        u8 = render_image(args, kw, device, mark=mark)
         rows = cur_q.shape[1]
         return u8[top_b * 8:top_b * 8 + rows]
 

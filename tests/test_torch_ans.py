@@ -73,6 +73,23 @@ def test_twin_tape_matches_simulator(case):
         assert tape[s - 1, lane] != 0 and (tape[s:, lane] == 0).all()
 
 
+def test_program_plan_pads_and_decodes_alike(case):
+    """program_plan's padding (flat_hw to a power of two halfwords, the
+    alias tables to ALIAS_STEP rows, the tape to TAPE_STEP rows) changes
+    no decoded token, flag or step count."""
+    lp, pp = case.lp, tak.program_plan(case.lp)
+    n = len(pp.flat_hw)
+    assert n & (n - 1) == 0 and n >= len(lp.flat_hw)
+    assert pp.alias_rows % tak.ALIAS_STEP == 0
+    assert pp.alias_rows >= lp.alias_rows
+    assert pp.a1.shape == pp.a2.shape == (lp.B, pp.alias_rows * 128)
+    assert pp.t_alloc == tak.tape_rows(lp.t_alloc)
+    tape, ok, steps = kernels.ans_decode(pp.to("cpu"))
+    assert torch.equal(ok, case.ok) and torch.equal(steps, case.steps)
+    assert torch.equal(tape[:len(case.tape)], case.tape)
+    assert not tape[len(case.tape):].any()
+
+
 def test_twin_tape_matches_jax_kernel(case, jax_decode):
     tape = case.tape.numpy()
     T = jax_decode.tape.shape[0]
@@ -117,9 +134,9 @@ def test_decode_batch_entropy_matches_host_batch_and_jax(case):
                                                 stages=stages)
     assert info == {"path": "device_entropy"}
     assert list(stages) == [
-        "host parse + plan + lane plan", "upload of the lane plan",
-        "ans_decode", "ok/steps readback + place",
-        "upload of the render arrays", "render", "readback"]
+        "host parse + plan + lane plan",
+        "upload of the lane plan and the render arrays", "ans_decode",
+        "place", "render", "readback"]
     assert all(s >= 0 for s in stages.values())
     jax_imgs, jinfo = decode_tpu_batch_entropy(case.datas)
     assert jinfo["path"] == "device_entropy"

@@ -965,10 +965,33 @@ def test_program_replay_equals_its_eager_call(cuda, name):
     prog, outs, launches = _three_calls(name, fn, *args)
     assert prog.mode == "replay" and prog.calls == 3
     assert prog.capture_s is not None
+    # what the program holds: its slots and its graph's pool
+    assert prog.held >= sum(t.untyped_storage().nbytes()
+                            for t in prog.slots) > 0
     assert _same(outs[0], outs[1]) and _same(outs[0], outs[2])
     assert launches[0] == launches[1] == launches[2]
     assert prog.launches == {k: v for k, v in launches[0].items()
                              if k in prog.launches}
+
+
+@pytest.mark.cuda
+def test_entropy_program_replays_a_batch_of_other_images(cuda):
+    """Batches of other images of one geometry share the "entropy"
+    program: the first runs eagerly, the second (other images) captures
+    and replays, the first again replays; each equals the host-entropy
+    batch exactly."""
+    from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.ops import programs
+
+    programs.clear()
+    a, b = _entropy_streams(2, 24), _entropy_streams(2, 25)
+    for streams in (a, b, a):
+        got, info = tpu_codec.decode_batch_entropy(streams, "cuda")
+        assert info == {"path": "device_entropy"}
+        for g, h in zip(got, tpu_codec.decode_batch(streams, "cuda")):
+            assert np.array_equal(g, h)
+    (prog,) = [p for p in programs.programs(cuda) if p.name == "entropy"]
+    assert prog.mode == "replay" and prog.calls == 3
 
 
 @pytest.mark.cuda

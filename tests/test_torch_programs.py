@@ -58,24 +58,65 @@ def test_batch_key_is_the_jax_key(batches, which):
 
 def test_entropy_key_is_the_jax_key(batches):
     """The JAX key ends in its kernel's interpret flag, which the port
-    does not have; every other field is equal."""
+    does not have; its alias_rows is the program plan's, rounded up to
+    ans_kernel.ALIAS_STEP; every other field is equal."""
     streams = batches[1]
     prog, _, sp = jtc.prepare_tpu_batch_entropy(streams)
     jkey = _stored_key(jtc._ENTROPY_PROGS, prog)
     config, _, lp = tpu_codec.prepare_batch_entropy(streams)
-    key = tpu_codec.entropy_key(config, lp)
-    assert key == jkey[:-1] and jkey[-1] is True
+    key = tpu_codec.entropy_key(config, ans_kernel.program_plan(lp))
+    i = len(key) - 6     # alias_rows
+    assert key[:i] == jkey[:i] and key[i + 1:] == jkey[i + 1:-1]
+    assert jkey[-1] is True
+    step = ans_kernel.ALIAS_STEP
+    assert key[i] == -(-sp.alias_rows // step) * step
     assert ans_kernel.tape_rows(lp.t_alloc) == sp.t_alloc
 
 
+def _entropy_call(streams, monkeypatch):
+    """The (name, key, spec) of decode_batch_entropy's program call for
+    `streams` (the program's cache key), and its lane plan's arrays."""
+    seen = []
+
+    class Stop(Exception):
+        pass
+
+    def spy(name, key, fn, *args, device, mark=None, readback=False,
+            **kwargs):
+        seen.append(((name, key, programs.flatten((args, kwargs))[1]),
+                     args[0]))
+        raise Stop
+
+    monkeypatch.setattr(programs, "run", spy)
+    with pytest.raises(Stop):
+        tpu_codec.decode_batch_entropy(streams, "cpu")
+    return seen[0]
+
+
+def test_entropy_batches_of_one_geometry_share_a_program(batches,
+                                                         monkeypatch):
+    """Two batches of other images of one geometry and encoder setting
+    map to one "entropy" program: the padded lane streams and alias
+    tables give both the same key and input shapes."""
+    other = [codestream.encode_lossy(_image(512, s), distance=4.0,
+                                     effort=3, device=None) for s in (9, 10)]
+    key_a, lanes_a = _entropy_call(batches[1], monkeypatch)
+    key_b, lanes_b = _entropy_call(other, monkeypatch)
+    assert key_a == key_b
+    assert not np.array_equal(lanes_a["flat_hw"], lanes_b["flat_hw"])
+
+
 def test_entropy_program_equals_the_staged_route(batches):
-    """decode_batch_entropy's program (K3 over the whole rounded tape, one
-    placement) gives the measurement route's images (the tape trimmed to
-    the steps taken) and the host-entropy batch's, exactly."""
+    """decode_batch_entropy's timed route (the program's body run eagerly
+    with its stages timed) gives the served call's images and the
+    host-entropy batch's, exactly, and times every stage."""
     streams = batches[1]
     got, info = tpu_codec.decode_batch_entropy(streams, "cpu")
-    staged, _ = tpu_codec.decode_batch_entropy(streams, "cpu", stages={})
+    stages = {}
+    staged, _ = tpu_codec.decode_batch_entropy(streams, "cpu",
+                                               stages=stages)
     assert info == {"path": "device_entropy"}
+    assert tuple(stages) == tpu_codec.ENTROPY_STAGES
     for g, s, h in zip(got, staged, tpu_codec.decode_batch(streams, "cpu")):
         assert np.array_equal(g, s) and np.array_equal(g, h)
 
@@ -198,6 +239,46 @@ def test_cache_is_bounded_and_drops_least_recently_used():
         assert programs.programs("cuda:1") == []
     finally:
         programs.clear()
+
+
+def test_cache_drops_programs_past_its_memory_share(stub_capture,
+                                                   monkeypatch):
+    """A capture that takes the memory the captured programs hold past
+    held_limit drops the least recently used programs that hold memory,
+    never the one just captured."""
+    stub = programs.Program._capture
+
+    def capture(self, inputs):
+        stub(self, inputs)
+        self.held = 4
+
+    monkeypatch.setattr(programs.Program, "_capture", capture)
+    monkeypatch.setattr(programs, "held_limit", lambda device: 10)
+    x = np.zeros(2, np.float32)
+    # an eager call only: the least recently used, holding nothing
+    programs.run("held", (), _counting_body, x, 9.0, device=CUDA0)
+    for scale in (1.0, 2.0, 3.0):
+        for _ in range(2):      # eager, then capture
+            programs.run("held", (), _counting_body, x, scale,
+                         device=CUDA0)
+    def spec(scale):
+        return programs.flatten(((x, scale), {}))[1]
+
+    left = [(p.spec, p.held) for p in programs.programs(CUDA0)]
+    assert left == [(spec(9.0), 0), (spec(2.0), 4), (spec(3.0), 4)]
+
+
+def test_pool_bytes_counts_the_pools_segments(monkeypatch):
+    """Program.held's pool part: the segments of the graph's pool on the
+    program's device, no other pool's and no other device's."""
+    segments = [
+        {"device": 0, "segment_pool_id": (1, 7), "total_size": 2 << 20},
+        {"device": 0, "segment_pool_id": (1, 7), "total_size": 20 << 20},
+        {"device": 0, "segment_pool_id": (0, 0), "total_size": 1 << 30},
+        {"device": 1, "segment_pool_id": (1, 7), "total_size": 1 << 30},
+        {"device": 0, "segment_pool_id": (1, 8), "total_size": 1 << 30}]
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: segments)
+    assert programs._pool_bytes(CUDA0, (1, 7)) == 22 << 20
 
 
 class _StubGraph:
