@@ -2,6 +2,7 @@
 """GPU smoke run of libjxl_tpu_torch, the PyTorch/CUDA port.
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --sharded   # the multi-device phase alone
 
 Needs one CUDA card, nvcc (on PATH or in CUDA_HOME, default
 /usr/local/cuda) and a C compiler; no network, no JAX, and nothing of the
@@ -93,7 +94,12 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    costs (blocks that differ); butteraugli_diffmap_torch on the card
    against the CPU twin at 512x512, and at 2048x2048 its time, peak
    device memory and torch operations; render_tail against its twin on
-   the e7 trial's own inputs;
+   the e7 trial's own inputs; each device stage a program (tile_cost a
+   tile size, trial, diffmap): the second e5 encode captures the tile
+   sizes the first ran, the e7 encode's second round the trial and the
+   diffmap, the e7 image encoded again replays every program and on the
+   eager route (every call eager), bytes equal both ways, with what the
+   programs hold beside the cache's memory bound;
 11. drives the multi-device path (libjxl_tpu_torch/parallel) on a mesh
    of 4 entries, the cards in turn (on one card a virtual mesh of
    cuda:0, which it logs), each counted: tpu_codec.decode_batch_sharded
@@ -108,7 +114,13 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    the second band's own inputs against their twins; the 4096x4096
    streaming encode with the mesh (bytes equal to hosts=1's, no launch);
    build_sharded_decode_full and build_sharded_encode on a (batch 2, rows
-   2) mesh at 2048x2048 against the unsharded forms on the card;
+   2) mesh at 2048x2048 against the unsharded forms on the card; each
+   builder (a program a mesh entry and phase) and decode_batch_sharded
+   ("batch" a card) called twice more, capture and replay, each bitwise
+   its eager call with its launches, the band program also timed on the
+   eager route, and the halo path (peer access between cards) logged;
+   with --sharded this phase alone, on four real cards where the machine
+   has them;
 12. drives the user entry points on the card, each tool through its
    main(argv) in this process with the counters reset just before and read
    just after, on PPM files in a temporary directory: djxl on the four
@@ -166,7 +178,9 @@ JAX package libjxl_tpu: the port carries its own host layers. It
    it (ProgramSpy): the first 16-stream batch, the 2048x2048 e5 frame,
    the 4:2:0 YCbCr frame, a 4096x4096 strip, a 2048x2048 e3 encode, the
    first streaming DC group's prep and step, entry()'s group, the block
-   route and the device-entropy batch, eager (cache cleared) against
+   route, the device-entropy batch, each tile size of a 2048x2048
+   search, the 2048x2048 e7 trial and diffmap, and a phase of every
+   sharded builder, eager (cache cleared) against
    replay: bitwise equal, equal launches, each call and each body timed
    by CUDA events and the host clock, the capture's time, the memory the
    program holds and an eager call's peak;
@@ -1775,6 +1789,7 @@ def check_tile_costs(acs_inputs, dev):
             card).all() and off <= max(1, card.size // 1000),
             f"tile cost {rows}x{cols}: {off} of {card.size} tiles off the "
             f"CPU twin by more than {TILE_RTOL} (max {rel.max():.3g})")
+        frame._tile_cost_device(*a, dev)  # captured here if not before
         sizes[f"{rows}x{cols}"] = {
             "tiles": int(card.size), "max_rel": float(rel.max()),
             "off": off, "host_max_rel": float(
@@ -1800,11 +1815,12 @@ def check_tile_costs(acs_inputs, dev):
 def check_diffmap(dev):
     """butteraugli_diffmap_torch on the card against the CPU twin at
     DIFFMAP_CHECK_SIDE^2 (a photo against itself plus noise), then at
-    SIZE^2 its CUDA-event ms, peak device memory and torch operations."""
+    SIZE^2 its eager body's CUDA-event ms, peak device memory and torch
+    operations (the program's replay is drive_programs')."""
     import torch
 
     from libjxl_tpu_torch.metrics.butteraugli_torch import (
-        butteraugli_diffmap_torch)
+        _diffmap, butteraugli_diffmap_torch)
     from libjxl_tpu_torch.ops.xyb import srgb_u8_to_linear
 
     def pair(n, seed):
@@ -1822,10 +1838,15 @@ def check_diffmap(dev):
           and rel <= DIFFMAP_REL, f"diffmap on the card vs the CPU twin at "
           f"{DIFFMAP_CHECK_SIDE}^2: max relative difference {rel}")
     a, b = (t.to(dev) for t in pair(SIZE, 811))
-    ms = cuda_ms(lambda: butteraugli_diffmap_torch(a, b), 3)
+
+    def body():
+        with torch.inference_mode():
+            return _diffmap(a, b, 0.8, 1.0, 80.0)
+
+    ms = cuda_ms(body, 3)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    dm, ops = torch_ops(lambda: butteraugli_diffmap_torch(a, b))
+    dm, ops = torch_ops(body)
     torch.cuda.synchronize()
     return {"check_side": DIFFMAP_CHECK_SIDE, "max_rel": rel,
             "score_card": float(card.max()), "score_twin": float(
@@ -1860,37 +1881,169 @@ def check_trial_tail(tail_args):
                                pipeline.EPF_CHAINS[epf], "xyb"))}
 
 
+def _first_input_shape(spec):
+    """The shape of the first input in a program's spec."""
+    if spec[0] == "input":
+        return spec[1]
+    if spec[0] in ("tuple", "list", "dict"):
+        for v in spec[1]:
+            shape = _first_input_shape(v[1] if spec[0] == "dict" else v)
+            if shape is not None:
+                return shape
+    return None
+
+
+def heuristics_programs(dev, side):
+    """{(name, key): program} of the encoder heuristics' programs of `dev`
+    on a side^2 frame, from the programs cache."""
+    from libjxl_tpu_torch.ops import programs
+
+    first = {"tile_cost": (3, side, side), "diffmap": (3, side, side),
+             "trial": (3, side // 8, side // 8, 8, 8)}
+    return {(p.name, p.key): p for p in programs.programs(dev)
+            if p.name in first
+            and _first_input_shape(p.spec) == first[p.name]}
+
+
+class RunLog:
+    """While installed, the (name, key) of every programs.run call on the
+    card, in order; with eager=True it first drops the card's cached
+    programs, so that every call runs eagerly (the eager route)."""
+
+    def __init__(self, dev, eager=False):
+        self.dev, self.eager, self.calls, self.orig = dev, eager, [], None
+
+    def __enter__(self):
+        import torch
+
+        from libjxl_tpu_torch.ops import programs
+
+        self.orig = run = programs.run
+
+        def logged(name, key, fn, *args, **kw):
+            if torch.device(kw["device"]).type == "cuda":
+                self.calls.append((name, key))
+                if self.eager:
+                    programs.clear(self.dev)
+            return run(name, key, fn, *args, **kw)
+
+        programs.run = logged
+        return self
+
+    def __exit__(self, *exc):
+        from libjxl_tpu_torch.ops import programs
+
+        programs.run = self.orig
+
+
 def drive_heuristics(dev, smi):
     """The encoder heuristics on the card (the AC-strategy tile costs at
     e >= 4, the e7 refinement's trial through render_tail and its
-    diffmap): codestream.encode_lossy(..., device=dev) of 2 x SIZE^2 d1
-    photos at e5 and one at e7, each counted (no launch at e5,
-    render_tail once a refinement round at e7), the e5 ones beside the
-    host encode (device=None) of the same image, the e7 one beside it at
-    E7_HOST_SIDE^2; the strategy blocks that differ from the host
-    encode's; each card stream decoded by the host and on the card
-    (within 1 u8 step); the split of one e5 and one e7 encode; the tile
-    costs (check_tile_costs), the diffmap (check_diffmap) and the trial's
-    render_tail (check_trial_tail) against their CPU twins. Returns (the
-    trial's render_tail record, the phase's record)."""
+    diffmap), each a program (ops/programs.py): codestream.encode_lossy(...,
+    device=dev) of 2 x SIZE^2 d1 photos at e5 and one at e7, each counted
+    (no launch at e5, render_tail once a refinement round at e7), the e5
+    ones beside the host encode (device=None) of the same image (bytes
+    equal), the e7 one beside it at E7_HOST_SIDE^2; the second e5 encode
+    captures the tile sizes the first ran eagerly, the e7 encode's second
+    round the trial and the diffmap; the e7 image encoded again (every
+    program replays: bytes equal) and on the eager route (every program
+    call eager: bytes equal); which programs the e7 encode cycles through,
+    what each holds and whether the cache kept them all; the strategy
+    blocks that differ from the host encode's; each card stream decoded
+    by the host and on the card (within 1 u8 step); the split of one e5
+    and one e7 encode; the tile costs (check_tile_costs), the diffmap
+    (check_diffmap) and the trial's render_tail (check_trial_tail) against
+    their CPU twins. Returns (the trial's render_tail record, the phase's
+    record)."""
     from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.ops import programs
 
     codestream.encode_lossy(make_image(256, 256, 809), effort=7,
                             device=dev)  # first torch calls on the card
     runs = []
+    modes = {}
     with HeuristicsSpy() as spy:
         jobs = [(SIZE, seed, 5) for seed in HEUR_E5_SEEDS] \
-            + [(SIZE, HEUR_E7_SEED, 7), (E7_HOST_SIDE, HEUR_E7_SEED, 7)]
+            + [(SIZE, HEUR_E7_SEED, 7)]
         for side, seed, effort in jobs:
             img = make_image(side, side, seed)
-            data, secs, strat, n, split = encode_timed(img, effort, dev, spy)
+            with RunLog(dev) as ran:
+                data, secs, strat, n, split = encode_timed(img, effort, dev,
+                                                           spy)
             want = {"render_tail": E7_ROUNDS} if effort >= 7 else {}
             check(n == want, f"e{effort} {side}^2 encode on the card "
                   f"launched {n}, not {want}")
+            progs = heuristics_programs(dev, SIZE)
+            modes[f"e{effort} seed {seed}"] = {
+                f"{name} {key}": progs[name, key].mode
+                if (name, key) in progs else "dropped"
+                for name, key in dict.fromkeys(ran.calls)}
             runs.append({"image": f"{side}^2 d1/e{effort}", "effort": effort,
                          "bytes": len(data), "device_s": secs,
                          "launches": n, "split_ms": split, "img": img,
                          "data": data, "strategy": strat})
+        # the second e5 encode captured every tile size the first ran; the
+        # e7 encode's second round captured the trial and the diffmap
+        e5_sizes = modes[f"e5 seed {HEUR_E5_SEEDS[1]}"]
+        check(all(m == "replay" for m in e5_sizes.values()),
+              f"the second {SIZE}^2 e5 encode left its programs {e5_sizes}")
+        e7_modes = modes[f"e7 seed {HEUR_E7_SEED}"]
+        refine = [m for k, m in e7_modes.items()
+                  if k.split()[0] in ("trial", "diffmap")]
+        check(refine == ["replay", "replay"],
+              f"the {SIZE}^2 e7 encode left its programs {e7_modes}")
+        e7 = runs[-1]
+        img = e7["img"]
+        # the same image again: every program of the encode replays
+        with RunLog(dev) as ran:
+            again, again_s, _, n, again_split = encode_timed(img, 7, dev, spy)
+        progs = heuristics_programs(dev, SIZE)
+        called = list(dict.fromkeys(ran.calls))
+        dropped = [c for c in called if c not in progs]
+        check(n == {"render_tail": E7_ROUNDS} and again == e7["data"]
+              and not dropped and all(progs[c].mode == "replay"
+                                      and progs[c].calls >= 2
+                                      for c in called),
+              f"the {SIZE}^2 e7 encode again: launches {n}, bytes "
+              f"{'equal' if again == e7['data'] else 'differ'}, dropped "
+              f"{dropped}, modes "
+              f"{[progs[c].mode for c in called if c in progs]}")
+        held = {f"{name} {key}": progs[name, key].held / 1e9
+                for name, key in called}
+        total = sum(p.held for p in programs.programs(dev)) / 1e9
+        limit = programs.held_limit(dev) / 1e9
+        # the eager route: every program call runs eagerly
+        with RunLog(dev, eager=True):
+            eager, eager_s, _, n, eager_split = encode_timed(img, 7, dev, spy)
+        check(n == {"render_tail": E7_ROUNDS} and eager == e7["data"],
+              f"the {SIZE}^2 e7 encode on the eager route: launches {n}, "
+              f"bytes {'equal' if eager == e7['data'] else 'differ'}")
+        e7_programs = {
+            "programs": len(called), "tile_sizes": sum(
+                name == "tile_cost" for name, _ in called),
+            "modes_after_each_encode": modes, "again_s": again_s,
+            "again_split_ms": again_split, "eager_s": eager_s,
+            "eager_split_ms": eager_split, "bytes_equal": True,
+            "held_gb": held, "held_gb_e7": sum(held.values()),
+            "held_gb_all_programs": total, "held_limit_gb": limit,
+            "dropped": dropped, "cache_size": programs.CACHE_SIZE}
+        log(f"heuristics programs: the {SIZE}^2 e7 encode cycles through "
+            f"{len(called)} programs ({e7_programs['tile_sizes']} tile "
+            f"sizes, the trial, the diffmap); again, every one replayed: "
+            f"{again_s:.3f} s beside {e7['device_s']:.3f} s at its first "
+            f"call and {eager_s:.3f} s on the eager route, bytes equal; "
+            f"they hold {sum(held.values()):.3f} GB ("
+            + ", ".join(f"{k} {v:.3f}" for k, v in held.items())
+            + f"), all programs of the card {total:.3f} GB of the "
+            f"{limit:.3f} GB bound, none dropped; {smi}")
+        img = make_image(E7_HOST_SIDE, E7_HOST_SIDE, HEUR_E7_SEED)
+        data, secs, strat, n, split = encode_timed(img, 7, dev, spy)
+        check(n == {"render_tail": E7_ROUNDS}, f"e7 {E7_HOST_SIDE}^2 "
+              f"encode on the card launched {n}")
+        runs.append({"image": f"{E7_HOST_SIDE}^2 d1/e7", "effort": 7,
+                     "bytes": len(data), "device_s": secs, "launches": n,
+                     "split_ms": split, "img": img, "data": data,
+                     "strategy": strat})
         acs_inputs, tail_args = spy.acs_inputs, spy.tail_args
     for run in runs:
         img = run.pop("img")
@@ -1913,12 +2066,16 @@ def drive_heuristics(dev, smi):
                     "blocks": int(strat.size),
                     "device_mp_s": mp_s(side * side, run["device_s"]),
                     "host_mp_s": mp_s(side * side, secs)})
+        if run["effort"] == 5:
+            check(run["bytes_equal"], f"{run['image']} card stream: "
+                  f"{run['bytes']} bytes unlike the host encode's "
+                  f"{len(host)}")
     tiles = check_tile_costs(acs_inputs, dev)
     diffmap = check_diffmap(dev)
     trial = {"launches": runs[2]["launches"]["render_tail"],
              **check_trial_tail(tail_args)}
     rec = {"encodes": runs, "tile_cost": tiles, "diffmap": diffmap,
-           "trial_render_tail": trial}
+           "trial_render_tail": trial, "e7_programs": e7_programs}
     for run in runs:
         log(f"heuristics encode {run['image']}: card {run['bytes']} B in "
             f"{run['device_s']:.3f} s"
@@ -2018,57 +2175,93 @@ def peak_gb(fn, devices):
 def check_shard_kernels(spy):
     """dequant_idct8 and render_tail on one call's own inputs (`spy`'s
     call: a shard's, or a route's) against their twins, timed beside
-    them; the records' "sharded" entries without launches (u8 steps
-    where the call wrote u8)."""
+    them on the inputs' own card (its events, its synchronize); the
+    records' "sharded" entries without launches (u8 steps where the call
+    wrote u8)."""
     import torch
 
     from libjxl_tpu_torch.ops import kernels, pipeline
 
     k1_args, _ = spy.calls["dequant_idct8"]
-    got = kernels.dequant_idct8(*k1_args)
-    ref = pipeline.decode_xyb_image(*k1_args)
-    torch.cuda.synchronize()
-    k1_err = max_err(got, ref)
-    check(torch.allclose(got, ref, **K1_TOL), "a shard's dequant_idct8 "
-          f"disagrees with decode_xyb_image: max abs err {k1_err}")
-    del got, ref
-    q = k1_args[0]
-    k1 = {"shard": "x".join(map(str, q.shape[-2:][::-1])),
-          "max_abs_err": k1_err,
-          "ms_per_shard": cuda_ms(lambda: kernels.dequant_idct8(*k1_args),
-                                  10),
-          "plain_ms": cuda_ms(lambda: pipeline.decode_xyb_image(*k1_args),
-                              3),
-          **bound(tensor_bytes(*k1_args[:7]) + 4 * q.numel(),
-                  K1_OPS * q.numel())}
+    with torch.cuda.device(k1_args[0].device):
+        got = kernels.dequant_idct8(*k1_args)
+        ref = pipeline.decode_xyb_image(*k1_args)
+        torch.cuda.synchronize()
+        k1_err = max_err(got, ref)
+        check(torch.allclose(got, ref, **K1_TOL), "a shard's dequant_idct8 "
+              f"disagrees with decode_xyb_image: max abs err {k1_err}")
+        del got, ref
+        q = k1_args[0]
+        k1 = {"shard": "x".join(map(str, q.shape[-2:][::-1])),
+              "max_abs_err": k1_err,
+              "ms_per_shard": cuda_ms(
+                  lambda: kernels.dequant_idct8(*k1_args), 10),
+              "plain_ms": cuda_ms(
+                  lambda: pipeline.decode_xyb_image(*k1_args), 3),
+              **bound(tensor_bytes(*k1_args[:7]) + 4 * q.numel(),
+                      K1_OPS * q.numel())}
 
     t_args, t_kw = spy.calls["render_tail"]
-    comp, gab, isg, sad, _, iters = t_args[:6]
-    got = kernels.render_tail(*t_args, out="xyb")
-    ref = pipeline.render_tail_plain(*t_args, out="xyb")
-    torch.cuda.synchronize()
-    k2_err = max_err(got, ref)
-    check(torch.allclose(got, ref, **tail_tol(iters)), "a shard's "
-          f"render_tail (XYB) disagrees with its twin: max abs err {k2_err}")
-    del got, ref
-    steps = None
-    if t_kw.get("out") == "u8srgb":
-        got = kernels.render_tail(*t_args, **t_kw)
-        ref = pipeline.render_tail_plain(*t_args, **t_kw)
+    with torch.cuda.device(t_args[0].device):
+        comp, gab, isg, sad, _, iters = t_args[:6]
+        got = kernels.render_tail(*t_args, out="xyb")
+        ref = pipeline.render_tail_plain(*t_args, out="xyb")
         torch.cuda.synchronize()
-        steps = int((got.int() - ref.int()).abs().max())
-        check(steps <= U8_BOUND, f"a shard's render_tail (u8) is {steps} "
-              "steps from its twin")
+        k2_err = max_err(got, ref)
+        check(torch.allclose(got, ref, **tail_tol(iters)),
+              "a shard's render_tail (XYB) disagrees with its twin: max abs "
+              f"err {k2_err}")
         del got, ref
-    k2 = {"shard": "x".join(map(str, comp.shape[-2:][::-1])),
-          "max_abs_err": k2_err, "u8_max_steps": steps,
-          "ms_per_shard": cuda_ms(lambda: kernels.render_tail(*t_args,
-                                                              **t_kw), 10),
-          "plain_ms": cuda_ms(lambda: pipeline.render_tail_plain(*t_args,
-                                                                 **t_kw), 3),
-          **bound(*tail_work(comp[None], isg, sad, gab,
-                             pipeline.EPF_CHAINS[iters], t_kw["out"]))}
+        steps = None
+        if t_kw.get("out") == "u8srgb":
+            got = kernels.render_tail(*t_args, **t_kw)
+            ref = pipeline.render_tail_plain(*t_args, **t_kw)
+            torch.cuda.synchronize()
+            steps = int((got.int() - ref.int()).abs().max())
+            check(steps <= U8_BOUND, f"a shard's render_tail (u8) is "
+                  f"{steps} steps from its twin")
+            del got, ref
+        k2 = {"shard": "x".join(map(str, comp.shape[-2:][::-1])),
+              "max_abs_err": k2_err, "u8_max_steps": steps,
+              "ms_per_shard": cuda_ms(
+                  lambda: kernels.render_tail(*t_args, **t_kw), 10),
+              "plain_ms": cuda_ms(
+                  lambda: pipeline.render_tail_plain(*t_args, **t_kw), 3),
+              **bound(*tail_work(comp[None], isg, sad, gab,
+                                 pipeline.EPF_CHAINS[iters], t_kw["out"]))}
     return {"dequant_idct8": k1, "render_tail": k2}
+
+
+def replays_equal(run, args, first, want, label, devices, mine):
+    """run(*args) twice after its eager first call, which gave `first`:
+    the capture and a replay of the builder's programs (those of `devices`
+    that mine(program) admits), each counted (`want`) and bitwise equal
+    to the first call; every such program then replays. Returns the host
+    seconds of the replayed call."""
+    from libjxl_tpu_torch.base.device import reset_launch_counts
+    from libjxl_tpu_torch.ops import programs
+    from libjxl_tpu_torch.parallel.sharding import synchronize
+
+    for what in ("capture", "replay"):
+        synchronize(devices)
+        reset_launch_counts()
+        t = time.perf_counter()
+        got = run(*args)
+        synchronize(devices)
+        secs = time.perf_counter() - t
+        n = nonzero_counts()
+        check(n == want, f"{label} ({what}): launches {n}, not {want}")
+        check(_same(got, first), f"{label}: the {what} differs from the "
+              "eager call")
+    progs = [p for d in set(devices) for p in programs.programs(d)
+             if mine(p)]
+    check(progs and all(p.mode == "replay" for p in progs),
+          f"{label}: programs {[(p.key, p.mode) for p in progs]}")
+    return secs
+
+
+def named(name):
+    return lambda p: p.name == name
 
 
 def drive_builders(devices, dev):
@@ -2112,6 +2305,9 @@ def drive_builders(devices, dev):
     launches = nonzero_counts()
     check(launches == SHARD_LAUNCHES, f"build_sharded_decode_full "
           f"launches {launches}")
+    replays_equal(full, args, got, SHARD_LAUNCHES,
+                  "build_sharded_decode_full", devices,
+                  named("sharded_full"))
     gab = to_device(sharding.GAB_KERNELS, dev)
 
     def unsharded():
@@ -2144,6 +2340,8 @@ def drive_builders(devices, dev):
     q, qdc = enc(rgb, qf, consts[0], consts[1], consts[2])
     torch.cuda.synchronize()
     check(nonzero_counts() == {}, "the sharded encode launched a kernel")
+    replays_equal(enc, (rgb, qf, *consts), (q, qdc), {},
+                  "build_sharded_encode", devices, named("sharded_encode"))
     ref = [pipeline.encode_coefficients(rgb[i], qf[i], consts[0], consts[1],
                                         1024.0, 1.0, 1.0, consts[2])
            for i in range(b)]
@@ -2187,6 +2385,16 @@ def drive_sharded(main16, piped16, big, big_bytes, dev, smi):
     rec = {"mesh": repr(mesh), "virtual": virtual,
            "cards": torch.cuda.device_count()}
 
+    peer = {f"{a}->{b}": torch.cuda.can_device_access_peer(a.index,
+                                                           b.index)
+            for a in dict.fromkeys(devices) for b in dict.fromkeys(devices)
+            if a != b}
+    rec["peer_access"] = peer or None
+    log("phase sharded: halo rows move " + (
+        "within one card (no peer copy)" if not peer else
+        "between cards by peer copy where " + json.dumps(peer) + " says "
+        "true, through the host where false"))
+
     reset_launch_counts()
     t = time.perf_counter()
     outs = tpu_codec.decode_batch_sharded(main16, mesh)
@@ -2194,6 +2402,12 @@ def drive_sharded(main16, piped16, big, big_bytes, dev, smi):
     launches = nonzero_counts()
     check(launches == SHARD_LAUNCHES,
           f"decode_batch_sharded launches {launches}")
+    per = len(main16) // SHARDS
+    serve_replay_s = replays_equal(
+        lambda: tpu_codec.decode_batch_sharded(main16, mesh), (), outs,
+        SHARD_LAUNCHES, "decode_batch_sharded", devices,
+        lambda p: p.name == "batch"
+        and _first_input_shape(p.spec)[0] == per)
     t = time.perf_counter()
     same = tpu_codec.decode_batch(main16, dev)
     batch_s = time.perf_counter() - t
@@ -2202,11 +2416,13 @@ def drive_sharded(main16, piped16, big, big_bytes, dev, smi):
               "decode_batch_sharded differs from decode_batch")
     mp = len(main16) * SIZE * SIZE
     rec["serving"] = {"launches": launches, "secs": serve_s,
-                      "mp_s": mp_s(mp, serve_s), "batch_secs": batch_s,
+                      "mp_s": mp_s(mp, serve_s), "replay_secs":
+                      serve_replay_s, "batch_secs": batch_s,
                       "batch_mp_s": mp_s(mp, batch_s)}
     log(f"phase sharded serving decode ({len(main16)} x {SIZE}^2 over "
         f"{SHARDS} shards, host clock): {serve_s:.3f} s "
-        f"({mp_s(mp, serve_s):.2f} MP/s) beside decode_batch's "
+        f"({mp_s(mp, serve_s):.2f} MP/s; replayed {serve_replay_s:.3f} s) "
+        f"beside decode_batch's "
         f"{batch_s:.3f} s "
         f"({mp_s(mp, batch_s):.2f} MP/s); equal to decode_pipelined's")
 
@@ -2229,11 +2445,34 @@ def drive_sharded(main16, piped16, big, big_bytes, dev, smi):
         launches = nonzero_counts()
     check(launches == SHARD_LAUNCHES,
           f"build_sharded_decode_stream launches {launches}")
+    band = replays_equal(run, sr.args, got, SHARD_LAUNCHES,
+                         "the band program", devices,
+                         lambda p: p.name == "sharded_stream"
+                         and p.key[-1][1] < SHARDS)
     got = got.permute(1, 2, 0)
     equal = bool(torch.equal(got, whole))
     steps, frac = dryrun.u8_steps(got.cpu().numpy(), whole.cpu().numpy(),
                                   "the strip-sharded big image")
     del got
+    with torch.inference_mode():
+        one = run1(*sr.args)
+        check(torch.equal(one.permute(1, 2, 0), whole), "the band program "
+              "on a 1-entry mesh differs from the whole-image render")
+    replays_equal(run1, sr.args, one, RENDER_LAUNCHES,
+                  "the band program on a 1-entry mesh", devices[:1],
+                  lambda p: p.name == "sharded_stream"
+                  and p.key[-1] == (0, 0))
+    del one
+
+    def eager(builder):
+        """builder(*sr.args) on the eager route: its programs dropped
+        first, so that each runs its first, eager call."""
+        from libjxl_tpu_torch.ops import programs
+
+        for d in dict.fromkeys(devices):
+            programs.clear(d)
+        return builder(*sr.args)
+
     with torch.inference_mode():
         ms = {"whole": cuda_ms(lambda: sr.single(dev), 3),
               "strips_1": cuda_ms(lambda: run1(*sr.args), 3),
@@ -2242,18 +2481,23 @@ def drive_sharded(main16, piped16, big, big_bytes, dev, smi):
                 "strips_1": peak_gb(lambda: run1(*sr.args), devices[:1]),
                 f"strips_{SHARDS}": peak_gb(lambda: run(*sr.args),
                                             devices)}
+        ms["strips_1_eager"] = cuda_ms(lambda: eager(run1), 3)
+        ms[f"strips_{SHARDS}_eager"] = cuda_ms(lambda: eager(run), 3)
     kernels = check_shard_kernels(spy)
     del spy, sr, whole
     rec["big"] = {"image": f"{SHARD_BIG}^2 d1/e3, device-encoded",
                   "bands": SHARDS, "launches": launches, "equal": equal,
+                  "replay_host_s": band,
                   "steps": steps, "fraction": frac, "encode_s": enc_s,
                   "entropy_s": entropy_s, "ms": ms, "peak_gb": peak}
     log(f"phase sharded big image ({rec['big']['image']}, {SHARDS} bands of "
         f"{SHARD_BIG // SHARDS} rows): "
         + ("equal to" if equal else f"{steps} step(s), {frac:.2e} of values "
            "off") + " the whole-image render; render (CUDA events, "
-        "device-resident inputs): " + ", ".join(
-            f"{k} {v:.4f} ms ({peak[k]:.3f} GB peak above the inputs)"
+        "device-resident inputs; the band programs replayed, or eager "
+        "where named): " + ", ".join(
+            f"{k} {v:.4f} ms" + (f" ({peak[k]:.3f} GB peak above the "
+                                 "inputs)" if k in peak else "")
             for k, v in ms.items())
         + f"; a band: " + ", ".join(
             f"{k} {v['ms_per_shard']:.4f} ms (plain {v['plain_ms']:.4f}, "
@@ -2270,6 +2514,17 @@ def drive_sharded(main16, piped16, big, big_bytes, dev, smi):
           "kernel")
     check(data == big_bytes, f"the streaming encode with the mesh wrote "
           f"{len(data)} bytes unlike hosts=1's {len(big_bytes)}")
+    from libjxl_tpu_torch.ops import programs
+
+    # one call of each entry's program a DC group (2048^2): the first
+    # eager, the second captures, the rest replay
+    groups = -(-big.shape[0] // 2048) * -(-big.shape[1] // 2048)
+    chunk = [p for d in dict.fromkeys(devices) for p in programs.programs(d)
+             if p.name == "sharded_chunk"]
+    check(len(chunk) == SHARDS and all(
+        p.calls == groups and (groups < 2 or p.mode == "replay")
+        for p in chunk), f"the sharded chunk step's programs over {groups} "
+        "DC groups: " + repr([(p.key, p.mode, p.calls) for p in chunk]))
     mp = big.shape[0] * big.shape[1]
     rec["streaming"] = {"secs": stream_s, "mp_s": mp_s(mp, stream_s),
                         "bytes_equal": True}
@@ -3072,19 +3327,78 @@ def drive_block_layout(stream, dev, smi):
 
 # The programs phase (drive_programs): each of the port's programs
 # (ops/programs.py, the JAX package's jitted programs) on an input an
-# earlier phase hands it, by label: (program name, the call to keep)
+# earlier phase hands it, by label: (program name, the call to keep, which
+# of the program's calls on the card it is: wants(key, args, kwargs)).
+# The tile-cost labels are those of the LADDER sizes that the SIZE^2
+# encodes reached (the 128 and 256 rungs run only where some 128^2 area
+# is smooth)
+def _first(key, args, kw):
+    return True
+
+
+def _entry(phase, entry, width=None):
+    """A sharded builder's call of `phase` on mesh entry `entry` (keys end
+    in (phase, (b, r))), whose first input is width() wide."""
+    def wants(key, args, kw):
+        return tuple(key[-2:]) == (phase, entry) and (
+            width is None or args[0].shape[-1] == width())
+    return wants
+
+
 PROGRAM_CALLS = {
-    "batch": ("batch", "the first 16-stream batch"),
-    "dec_image": ("dec_image", "the 2048^2 e5 frame"),
-    "dec_sub": ("dec_sub", "the 2048^2 4:2:0 YCbCr frame"),
-    "strip": ("dec_image", "a 4096^2 e3 strip (a middle one, haloed)"),
-    "enc": ("enc", "a 2048^2 d1/e3 encode"),
-    "chunk_prep": ("chunk_prep", "the first streaming DC group's prep"),
-    "chunk_step": ("chunk_step", "the first streaming DC group's step"),
-    "dec": ("dec", "entry()'s 256^2 group (decode_pixels_hybrid)"),
+    "batch": ("batch", "the first 16-stream batch", _first),
+    "dec_image": ("dec_image", "the 2048^2 e5 frame",
+                  lambda key, args, kw: tuple(kw["qimg"].shape)
+                  == (3, SIZE, SIZE)),
+    "dec_sub": ("dec_sub", "the 2048^2 4:2:0 YCbCr frame", _first),
+    "strip": ("dec_image", "a 4096^2 e3 strip (a middle one, haloed)",
+              lambda key, args, kw: tuple(kw["qimg"].shape)
+              == (3, 384, BIG)),
+    "enc": ("enc", "a 2048^2 d1/e3 encode",
+            lambda key, args, kw: args[0].shape[-1] == SIZE),
+    "chunk_prep": ("chunk_prep", "the first streaming DC group's prep",
+                   _first),
+    "chunk_step": ("chunk_step", "the first streaming DC group's step",
+                   _first),
+    "dec": ("dec", "entry()'s 256^2 group (decode_pixels_hybrid)",
+            lambda key, args, kw: tuple(args[0].shape) == (3, 32, 32, 8, 8)),
     "dec_full": ("dec_full", "the block route on a 2048^2 e3 stream "
-                             "(decode_render_blocks)"),
-    "entropy": ("entropy", "the first 16-stream batch, device entropy"),
+                             "(decode_render_blocks)", _first),
+    "entropy": ("entropy", "the first 16-stream batch, device entropy",
+                _first),
+    "trial": ("trial", "the 2048^2 e7 encode's first refinement round",
+              lambda key, args, kw: tuple(args[2].shape)
+              == (SIZE // 8, SIZE // 8)),
+    "diffmap": ("diffmap", "the 2048^2 e7 encode's first refinement round",
+                lambda key, args, kw: tuple(args[0].shape)
+                == (3, SIZE, SIZE)),
+    "sharded_stream.1": ("sharded_stream", f"the {SHARD_BIG}^2 band "
+                         "program's second band: K1",
+                         _entry(1, (0, 1), lambda: SHARD_BIG)),
+    "sharded_stream.2": ("sharded_stream", f"the {SHARD_BIG}^2 band "
+                         "program's second band: the composite, K2",
+                         _entry(2, (0, 1), lambda: SHARD_BIG)),
+    "sharded_full.1": ("sharded_full", "2 x 2048^2 on the (2, 2) mesh, "
+                       "entry (1, 1): K1", _entry(1, (1, 1))),
+    "sharded_full.2": ("sharded_full", "2 x 2048^2 on the (2, 2) mesh, "
+                       "entry (1, 1): the composite, K2, RGB",
+                       _entry(2, (1, 1))),
+    "sharded_encode": ("sharded_encode", "2 x 2048^2 on the (2, 2) mesh, "
+                       "entry (1, 1)", _entry(1, (1, 1), lambda: SIZE)),
+    "sharded_decode.1": ("sharded_decode", "2 x 2048^2 blocks on the (2, 2) "
+                         "mesh, entry (1, 1): the hybrid decode",
+                         lambda key, args, kw: tuple(key[-2:]) == (1, (1, 1))
+                         and args[0].shape[3] == SIZE // 8),
+    "sharded_decode.2": ("sharded_decode", "2 x 2048^2 blocks on the (2, 2) "
+                         "mesh, entry (1, 1): Gaborish",
+                         _entry(2, (1, 1), lambda: SIZE)),
+    "sharded_chunk": ("sharded_chunk", f"the {BIG}^2 streaming encode's "
+                      "first DC group, entry 1", _entry(1, (0, 1))),
+    **{f"tile_cost {r}x{c}": (
+        "tile_cost", f"a {SIZE}^2 search's {r}x{c} tiles",
+        lambda key, args, kw, r=r, c=c: tuple(key[:2]) == (r, c)
+        and tuple(args[0].shape) == (3, SIZE, SIZE))
+       for r, c, _ in LADDER},
 }
 PROGRAM_REPS = 5
 
@@ -3092,12 +3406,14 @@ PROGRAM_REPS = 5
 class ProgramSpy:
     """While installed, keeps for each label of PROGRAM_CALLS the first
     programs.run call of its program on the card (the CPU references run
-    the bodies directly) that `wants` admits: (name, key, fn,
-    args, kwargs) with the inputs as the call site gave them, so that
-    drive_programs can run the program on them again."""
+    the bodies directly) that the label wants: (name, key, fn, args,
+    kwargs) with the inputs as the call site gave them, a tensor on the
+    card cloned (a builder hands a phase's own outputs to the next phase,
+    which a later call overwrites), so that drive_programs can run the
+    program on them again."""
 
-    def __init__(self, wants):
-        self.wants, self.calls, self.orig = wants, {}, None
+    def __init__(self):
+        self.calls, self.orig = {}, None
 
     def __enter__(self):
         import torch
@@ -3106,12 +3422,18 @@ class ProgramSpy:
 
         self.orig = run = programs.run
 
+        def keep(tree):
+            inputs, spec = programs.flatten(tree)
+            return programs.unflatten(spec, [
+                x.clone() if isinstance(x, torch.Tensor) and x.is_cuda
+                else x for x in inputs])
+
         def spy(name, key, fn, *args, **kw):
             on_card = torch.device(kw["device"]).type == "cuda"
-            for label, (prog, _) in PROGRAM_CALLS.items():
+            for label, (prog, _, wants) in PROGRAM_CALLS.items():
                 if on_card and prog == name and label not in self.calls \
-                        and self.wants(label, args, kw):
-                    self.calls[label] = (name, key, fn, args, kw)
+                        and wants(key, args, kw):
+                    self.calls[label] = (name, key, fn, *keep((args, kw)))
                     break
             return run(name, key, fn, *args, **kw)
 
@@ -3122,21 +3444,6 @@ class ProgramSpy:
         from libjxl_tpu_torch.ops import programs
 
         programs.run = self.orig
-
-
-def wanted_call(label, args, kw):
-    """The calls drive_programs runs again: a 2048^2 encode, a strip of
-    the BIG^2 photo (qimg 64 + 256 + 64 rows by BIG), every other
-    program's first call."""
-    if label == "enc":
-        return args[0].shape[-1] == SIZE
-    if label == "strip":
-        return tuple(kw["qimg"].shape) == (3, 384, BIG)
-    if label == "dec_image":
-        return tuple(kw["qimg"].shape) == (3, SIZE, SIZE)
-    if label == "dec":
-        return tuple(args[0].shape) == (3, 32, 32, 8, 8)
-    return True
 
 
 def _same(a, b):
@@ -3195,9 +3502,14 @@ def drive_programs(calls, dev, smi):
             ev.append(e)
         return out, n, float(np.mean(host)), float(np.mean(ev))
 
-    check(set(calls) == set(PROGRAM_CALLS),
+    wanted = {label for label in PROGRAM_CALLS
+              if not label.startswith("tile_cost")}
+    tiles = sorted(label for label in calls if label.startswith("tile_cost"))
+    check(wanted <= set(calls) and tiles,
           f"programs phase: the earlier phases gave {sorted(calls)}, not "
-          f"every one of {sorted(PROGRAM_CALLS)}")
+          f"every one of {sorted(wanted)} and a tile size")
+    log(f"programs phase: the {SIZE}^2 encodes ran {len(tiles)} tile sizes: "
+        + ", ".join(t.split()[1] for t in tiles))
     rec = {}
     for label, (name, key, fn, args, kw) in calls.items():
         def call():
@@ -3231,7 +3543,8 @@ def drive_programs(calls, dev, smi):
                                        for x in inputs])
         def body():
             return fn(*on[0], **{k: v for k, v in on[1].items()
-                                 if k not in ("device", "readback")})
+                                 if k not in ("device", "readback",
+                                              "clone")})
 
         # each after one untimed run, so that no cudaMalloc of the
         # allocator emptied above is timed
@@ -3249,9 +3562,11 @@ def drive_programs(calls, dev, smi):
         _, _, upload_ms, _ = mean_of(
             lambda: [programs._on(x, dev) for x in inputs])
         _, _, load_ms, _ = mean_of(lambda: prog._load(inputs))
-        _, _, back_ms, _ = mean_of(
-            lambda: [t.cpu().numpy() if readback else t.clone()
-                     for t in outs])
+        back_ms = 0.0  # a builder's phase hands its own outputs on
+        if readback or kw.get("clone", True):
+            _, _, back_ms, _ = mean_of(
+                lambda: [t.cpu().numpy() if readback else t.clone()
+                         for t in outs])
         host_in = [x for x in inputs if isinstance(x, np.ndarray)]
         pinned_ms = pageable_ms = None
         if host_in:
@@ -3339,6 +3654,9 @@ def drive_block_sharded(dev):
     launches = nonzero_counts()
     check(launches == BLOCK_SHARD_LAUNCHES,
           f"build_sharded_decode launches {launches}")
+    replays_equal(run, args, got, BLOCK_SHARD_LAUNCHES,
+                  "build_sharded_decode", list(mesh.devices.flat),
+                  named("sharded_decode"))
 
     def unsharded():
         with torch.inference_mode():
@@ -3365,9 +3683,47 @@ def drive_block_sharded(dev):
     return rec
 
 
-def main():
+def main_sharded(dev, smi, kind):
+    """python3 chip_smoke.py --sharded: the multi-device phase alone
+    (drive_sharded, then drive_block_sharded) on a mesh of SHARDS entries
+    of the cards in turn, so four real cards on a machine that has them,
+    with the inputs it needs: the first 16 2048^2 d1/e3 streams, their
+    batched decode and the BIG^2 photo's hosts=1 streaming bytes. Prints
+    the phase's record, the card line and the ok line."""
+    import concurrent.futures as cf
+    import multiprocessing as mp
+
     import torch
 
+    from libjxl_tpu_torch.api import codestream, tpu_codec
+
+    t = time.perf_counter()
+    jobs = [(SIZE, SIZE, 100 + i, None) for i in range(BATCH)]
+    with cf.ProcessPoolExecutor(min(len(jobs), os.cpu_count() or 1),
+                                mp_context=mp.get_context("spawn")) as ex:
+        done = list(ex.map(encode_and_reference, jobs))
+    main16 = [stream for stream, _ in done]
+    piped16 = tpu_codec.decode_pipelined(main16, dev, batch_size=BATCH)
+    big = make_image(BIG, BIG, 600)
+    big_bytes = codestream.encode_lossy_streaming(big, distance=1.0,
+                                                  device=dev)
+    log(f"phase sharded inputs: {time.perf_counter() - t:.2f} s")
+    t = time.perf_counter()
+    _, rec = drive_sharded(main16, piped16, big, big_bytes, dev, smi)
+    rec["block_sharded"] = drive_block_sharded(dev)
+    log(f"phase sharded: {time.perf_counter() - t:.2f} s")
+    print(json.dumps({"sharded": rec}), flush=True)
+    print(smi, flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def main(argv=None):
+    import torch
+
+    argv = sys.argv[1:] if argv is None else argv
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this run needs a GPU",
               file=sys.stderr)
@@ -3395,13 +3751,16 @@ def main():
     for line in so.with_suffix(".log").read_text().splitlines():
         if line.startswith("==") or "registers" in line or "spill" in line:
             log(f"  ptxas: {line.strip()}")
+    if argv == ["--sharded"]:
+        return main_sharded(dev, smi, kind)
+    check(not argv, f"arguments {argv}: none, or --sharded")
 
     import concurrent.futures as cf
     import multiprocessing as mp
 
     # every phase below runs through the port's programs; the spy keeps
     # the calls drive_programs runs again
-    spy = ProgramSpy(wanted_call)
+    spy = ProgramSpy()
     spy.__enter__()
 
     # the single-image path's streams first: the e5 encodes take longest

@@ -352,13 +352,14 @@ def decode_batch_sharded(streams, mesh=None, num_threads: int = 0) -> list:
     """The data-parallel serving decode (the port of
     decode_tpu_batch_sharded): one prepare_batch of `streams` on the host,
     the batch axis split over every device of `mesh` (a
-    parallel/sharding.Mesh, every card by default), one BatchRenderer a
-    shard (dequant_idct8 + render_tail), every device synchronized, then
-    the readback. Returns uint8 (H, W, 3) images in input order, cropped
-    as decode_batch crops them; raises JXLError when the batch does not
-    divide across the devices, or (like decode_batch) is not one
-    homogeneous all-DCT8 batch."""
-    from ..parallel.sharding import make_mesh, synchronize
+    parallel/sharding.Mesh, every card by default), each shard rendered
+    and read back through _render, the "batch" program of its device (on
+    one device, a mesh entry shares decode_batch's program). Returns
+    uint8 (H, W, 3) images in input order, cropped as decode_batch crops
+    them; raises JXLError when the batch does not divide across the
+    devices, or (like decode_batch) is not one homogeneous all-DCT8
+    batch."""
+    from ..parallel.sharding import make_mesh
 
     mesh = make_mesh() if mesh is None else mesh
     devs = list(mesh.devices.flat)
@@ -367,18 +368,14 @@ def decode_batch_sharded(streams, mesh=None, num_threads: int = 0) -> list:
                        f"across {len(devs)} devices")
     config, args = prepare_batch(streams, num_threads=num_threads)
     per = len(streams) // len(devs)
-    px = []
-    with torch.inference_mode():
-        for i, dev in enumerate(devs):
-            # the first 7 arrays carry the batch axis; dm, gabk and sad
-            # are shared
-            shard = tuple(a[i * per:(i + 1) * per] if k < 7 else a
-                          for k, a in enumerate(args))
-            renderer, inputs = batch_from_numpy(shard, config, dev)
-            px.append(renderer(*inputs))
-        synchronize(devs)
-        u8 = np.concatenate([p.cpu().numpy() for p in px])
-    return _crop(config, u8)
+    out = []
+    for i, dev in enumerate(devs):
+        # the first 7 arrays carry the batch axis; dm, gabk and sad are
+        # shared
+        out += _render(config, tuple(
+            a[i * per:(i + 1) * per] if k < 7 else a
+            for k, a in enumerate(args)), dev)
+    return out
 
 
 def decode_pipelined(streams, device="cuda", batch_size: int = 16,

@@ -7,21 +7,25 @@ psycho masking and the half-res pass. The constants and Malta tap
 patterns are the host module's (they ARE the model).
 
 The separable blurs are two products with a dense banded, row-normalised
-matrix (B_y @ img @ B_x^T), fp32 with TF32 off (base/device.py), cached
-per (n, sigma, device). The Malta filters are shifted adds on a
-zero-padded plane, most of a diffmap's ~3,000 eager torch operations
-(chip_smoke.py counts them; a fused kernel is open perf work, ROADMAP
-section 2).
+matrix (B_y @ img @ B_x^T), fp32 with TF32 off (base/device.py), a
+per-device constant of ops/programs.py per (n, sigma). The Malta filters
+are shifted adds on a zero-padded plane, most of a diffmap's ~3,000
+torch operations (chip_smoke.py counts them; a fused kernel is open perf
+work, ROADMAP section 2).
+
+butteraugli_diffmap_torch is the "diffmap" program (ops/programs.py), at
+the JAX package's static key (hf_asymmetry, xmul, intensity_target): on
+a card its second call of one shape captures the whole map into a CUDA
+graph, and later calls replay it.
 """
 
 from __future__ import annotations
-
-import functools
 
 import numpy as np
 import torch
 
 from ..base.device import apply_precision_policy
+from ..ops import programs
 from ..ops.pipeline import _fma
 from .butteraugli import (
     MALTA_FULL,
@@ -58,10 +62,11 @@ def _blur_matrix_np(n: int, sigma: float) -> np.ndarray:
     return b.astype(np.float32)
 
 
-@functools.lru_cache(maxsize=32)
 def _blur_matrix(n: int, sigma: float, device: torch.device) -> torch.Tensor:
-    """_blur_matrix_np on `device` (n^2 f32: 16 MB at 2048)."""
-    return torch.from_numpy(_blur_matrix_np(n, sigma)).to(device)
+    """_blur_matrix_np on `device` (n^2 f32: 16 MB at 2048), made once a
+    device: a program's capture may not upload."""
+    return programs.constant(f"butteraugli_blur_{n}_{sigma!r}", device,
+                             lambda: _blur_matrix_np(n, sigma))
 
 
 def _blur(img: torch.Tensor, sigma: float) -> torch.Tensor:
@@ -162,13 +167,14 @@ def _malta_diffs(v0, v1, w_0gt1, w_0lt1, norm1, mulli):
     absval = 0.5 * (torch.abs(v0) + torch.abs(v1))
     diff = v0 - v1
     # a 0-d tensor over a tensor is a true division (a Python number over
-    # a tensor is a reciprocal and a product in torch)
+    # a tensor is a reciprocal and a product in torch); torch.full writes
+    # it on the device, where torch.tensor would upload it
     den = norm1 + absval
-    scaler = torch.tensor(norm2_0gt1, dtype=den.dtype, device=den.device) \
-        / den
+    scaler = torch.full((), norm2_0gt1, dtype=den.dtype,
+                        device=den.device) / den
     diffs = scaler * diff
-    scaler2 = torch.tensor(norm2_0lt1, dtype=den.dtype, device=den.device) \
-        / den
+    scaler2 = torch.full((), norm2_0lt1, dtype=den.dtype,
+                         device=den.device) / den
     fabs0 = torch.abs(v0)
     too_small = 0.55 * fabs0
     too_big = 1.05 * fabs0
@@ -322,11 +328,23 @@ def butteraugli_diffmap_torch(rgb0_linear, rgb1_linear,
                               hf_asymmetry: float = 0.8, xmul: float = 1.0,
                               intensity_target: float = 80.0) -> torch.Tensor:
     """Per-pixel diffmap f32[H, W] of two linear RGB (3, H, W) images in
-    [0, 1], incl. the half-res pass, on the first image's device."""
+    [0, 1] (tensors or numpy arrays), incl. the half-res pass, on the
+    first image's device: the "diffmap" program (module docstring)."""
+    dev = rgb0_linear.device if isinstance(rgb0_linear, torch.Tensor) \
+        else torch.device("cpu")
+    return programs.run(
+        "diffmap", (hf_asymmetry, xmul, intensity_target), _diffmap,
+        rgb0_linear, rgb1_linear, hf_asymmetry=hf_asymmetry, xmul=xmul,
+        intensity_target=intensity_target, device=dev)
+
+
+def _diffmap(rgb0_linear, rgb1_linear, hf_asymmetry, xmul,
+             intensity_target):
+    """The diffmap program's body: butteraugli_diffmap_jax in torch ops
+    on the first image's device."""
     apply_precision_policy()
-    rgb0 = torch.as_tensor(rgb0_linear).to(torch.float32)
-    rgb1 = torch.as_tensor(rgb1_linear).to(device=rgb0.device,
-                                           dtype=torch.float32)
+    rgb0 = rgb0_linear.to(torch.float32)
+    rgb1 = rgb1_linear.to(device=rgb0.device, dtype=torch.float32)
     h, w = rgb0.shape[1:]
     xyb0 = opsin_dynamics_image(rgb0, intensity_target)
     xyb1 = opsin_dynamics_image(rgb1, intensity_target)

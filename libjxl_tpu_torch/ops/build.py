@@ -25,7 +25,7 @@ import threading
 _CSRC = pathlib.Path(__file__).resolve().parent / "csrc"
 SOURCES = ("dequant_idct8.cu", "render_tail.cu", "ans_decode.cu",
            "gather_probe.cu", "ans_probe.cu")
-HEADERS = ("ans_ring.cuh",)
+HEADERS = ("ans_ring.cuh", "device_scope.cuh")
 BUILD_DIR = pathlib.Path(__file__).resolve().parents[2] / "build" \
     / "libjxl_tpu_torch"
 # lanes a CTA of ans_decode.cu (one warp) decodes, all of one image: 1024

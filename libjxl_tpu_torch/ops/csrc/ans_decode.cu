@@ -42,6 +42,7 @@
 #include <stdint.h>
 
 #include "ans_ring.cuh"
+#include "device_scope.cuh"
 
 namespace {
 
@@ -320,12 +321,12 @@ extern "C" int jxl_ans_decode(const void* flat, long long total,
                               int t_alloc, const int* cta_first, int n_cta,
                               int* tape, void* ok, int* steps, void* stream,
                               int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   const size_t smem = smem_bytes(alias_words);
-  err = cudaFuncSetAttribute(ans_decode_kernel,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize,
-                             (int)smem);
+  const cudaError_t err = cudaFuncSetAttribute(
+      ans_decode_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
   if (err != cudaSuccess) return (int)err;
   ans_decode_kernel<<<n_cta, kThreads, smem, (cudaStream_t)stream>>>(
       (const uint16_t*)flat, total, lane_off, n_chains, bw, lane_img,

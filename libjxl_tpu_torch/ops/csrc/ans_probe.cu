@@ -20,6 +20,7 @@
 #include <stdint.h>
 
 #include "ans_ring.cuh"
+#include "device_scope.cuh"
 
 namespace {
 
@@ -62,8 +63,8 @@ extern "C" int jxl_ans_stream_floor(
     int alias_words, int las, int L, int t_alloc, const int* cta_first,
     int n_cta, int* tape, void* ok, const int* steps, void* stream,
     int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   ans_stream_floor_kernel<<<n_cta, kThreads, 0, (cudaStream_t)stream>>>(
       (const uint16_t*)flat, total, lane_off, cta_first, t_alloc, L, tape,
       (bool*)ok, steps);

@@ -34,6 +34,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_scope.cuh"
+
 namespace {
 
 constexpr int kThreads = 256;
@@ -219,8 +221,8 @@ dequant_idct8_kernel(const QT* __restrict__ qimg, const int* __restrict__ qf,
 // device captures a graph: the copy reads pageable host memory). Returns
 // the CUDA error code.
 extern "C" int jxl_dequant_idct8_tables(const float* inv8_host, int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   return (int)cudaMemcpyToSymbol(c_inv8, inv8_host, sizeof(c_inv8));
 }
 
@@ -239,8 +241,8 @@ extern "C" int jxl_dequant_idct8(const void* qimg, int q16, const int* qf,
                                  float b_dm_mult, int B, int H, int W,
                                  int nty, int ntx, float* out, void* stream,
                                  int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   const QuantBias qb = {{qb0, qb1, qb2, qb3}};
   const dim3 grid((W / 8 + kBlocksPerCta - 1) / kBlocksPerCta, H / 8, B);
   cudaStream_t s = (cudaStream_t)stream;

@@ -42,6 +42,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_scope.cuh"
+
 namespace {
 
 constexpr int kThreads = 32;  // K3's CTA: one warp
@@ -218,15 +220,6 @@ __global__ void noop_kernel(const int32_t* __restrict__ a,
   if (i < n) o[i] = a[i];
 }
 
-// Switches device only when needed, so that a launch can be captured into
-// a CUDA graph.
-cudaError_t use_device(int device) {
-  int cur = -1;
-  cudaError_t err = cudaGetDevice(&cur);
-  if (err != cudaSuccess || cur == device) return err;
-  return cudaSetDevice(device);
-}
-
 }  // namespace
 
 // Each entry point launches one kernel on `stream` and returns
@@ -239,8 +232,8 @@ extern "C" int jxl_probe_chain(int T, int gathers, int shared, int rowcol,
                                const void* table, const void* state,
                                int iters, void* out, void* stream,
                                int device) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   const uint32_t* tb = (const uint32_t*)table;
   const uint32_t* st = (const uint32_t*)state;
   uint32_t* o = (uint32_t*)out;
@@ -267,8 +260,8 @@ extern "C" int jxl_probe_window(int depth, int rule, int mode,
                                 const void* win, int row_stride,
                                 int col_mask, const void* state, int iters,
                                 void* out, void* stream, int device) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   const uint32_t* w = (const uint32_t*)win;
   const uint32_t* st = (const uint32_t*)state;
   uint32_t* o = (uint32_t*)out;
@@ -295,8 +288,8 @@ extern "C" int jxl_probe_table(int body, int shared, const void* tbl,
                                const void* win, const void* state,
                                int iters, void* out, void* stream,
                                int device) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   const uint32_t* tb = (const uint32_t*)tbl;
   const uint32_t* wn = (const uint32_t*)win;
   const uint32_t* st = (const uint32_t*)state;
@@ -324,8 +317,8 @@ extern "C" int jxl_probe_take_along(int shared, const void* tbl,
                                     const void* state, int H, int W,
                                     int axis, int mod, int group, int iters,
                                     void* out, void* stream, int device) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   const int threads = axis == 1 ? group * W : H * group;
   const int grid = axis == 1 ? H / group : W / group;
   if (group <= 0 || threads > 1024 || mod <= 0 || (axis != 0 && axis != 1) ||
@@ -348,8 +341,8 @@ extern "C" int jxl_probe_take_along(int shared, const void* tbl,
 // o[:n] = a[:n] (i32)
 extern "C" int jxl_probe_noop(const void* a, void* o, int n, void* stream,
                               int device) {
-  cudaError_t err = use_device(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   noop_kernel<<<(n + 255) / 256, 256, 0, (cudaStream_t)stream>>>(
       (const int32_t*)a, (int32_t*)o, n);
   return (int)cudaGetLastError();

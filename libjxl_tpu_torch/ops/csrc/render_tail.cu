@@ -57,6 +57,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "device_scope.cuh"
+
 #ifndef JXL_RENDER_TILE_H
 #error "JXL_RENDER_TILE_H: the output tile's rows (ops/build.py)"
 #endif
@@ -566,8 +568,8 @@ extern "C" int jxl_render_tail(const float* in, void* out,
                                const float* opsin, float cbrt_bias,
                                float bias, int B, int H, int W, void* stream,
                                int device) {
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
+  const DeviceScope scope(device);
+  if (scope.error() != cudaSuccess) return (int)scope.error();
   TailParams p;
   p.in = in;
   p.out = out;
@@ -584,6 +586,7 @@ extern "C" int jxl_render_tail(const float* in, void* out,
   p.H = H;
   p.W = W;
   cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
   if (gab) {
     err = u8 ? launch_chain<true, true>(first, last, p, B, s)
              : launch_chain<true, false>(first, last, p, B, s);

@@ -1070,5 +1070,5 @@ def encode_coefficients(rgb, qf, dm_inv, dm_y, inv_global_scale, x_dm_mult,
     qdc_x = torch.round(dc[0] * idc[0])
     qdc_b = torch.round((dc[2] - qdc_y / idc[1]) * idc[2])
     qdc = torch.stack([qdc_x, qdc_y, qdc_b]).to(torch.int32)
-    q[:, :, :, 0, 0] = 0
+    q[:, :, :, 0, 0].fill_(0)  # a scalar store would upload it
     return q, qdc

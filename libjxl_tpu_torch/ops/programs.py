@@ -25,8 +25,13 @@ packages' keys together).
 
 fn returns a tree of tensors. The caller gets them cloned, or read back
 as numpy arrays (readback=True), while it holds the program, so that no
-replay of the same program overwrites what a caller holds. Each replay
-adds to the launch counters (base/device.py) what its capture recorded.
+replay of the same program overwrites what a caller holds; clone=False
+hands back the program's own output tensors, which its next call
+overwrites, to a caller that consumes them first (a sharded builder
+between its phases). A capture takes such an output, handed to it as an
+input, as its slot: the one program reads it where the other writes it.
+Each replay adds to the launch counters (base/device.py) what its
+capture recorded.
 
 A call given a `mark` timing hook runs eagerly, fn getting mark=, as
 jax.disable_jit would: the measurement route. A call on the CPU runs fn
@@ -53,8 +58,13 @@ import torch
 
 from ..base.device import launch_counter, recording_launches
 
-# programs kept a device (the JAX ans_kernel caches' lru_cache maxsize)
-CACHE_SIZE = 16
+# programs kept a device: the most one caller cycles through, an effort-7
+# encode's 18 (16 tile sizes, the refinement's trial and its diffmap),
+# beside the 10 that a server keeps for the other paths (batch, entropy,
+# dec_image for a frame and for a strip, dec_sub, enc, chunk_prep,
+# chunk_step, dec, dec_full); the held-memory bound below is the real
+# guard
+CACHE_SIZE = 28
 # the captured programs of a device hold at most 1 / HELD_SHARE of its
 # memory (a graph pool of one 16 x 2048^2 batch is 2-3 GB)
 HELD_SHARE = 4
@@ -145,7 +155,10 @@ def _host(x: np.ndarray) -> torch.Tensor:
 
 
 def _on(x, device) -> torch.Tensor:
-    return (_host(x) if isinstance(x, np.ndarray) else x).to(device)
+    """An input on `device`, contiguous as a slot is, so that an eager
+    call computes on the layout its replays will."""
+    return (_host(x) if isinstance(x, np.ndarray) else x).to(
+        device).contiguous()
 
 
 def _deliver(out, readback: bool, clone: bool):
@@ -153,7 +166,8 @@ def _deliver(out, readback: bool, clone: bool):
     they are."""
     leaves, spec = flatten(out)
     if readback:
-        leaves = [t.cpu().numpy() for t in leaves]
+        # a copy also where the program's own tensors are on the host
+        leaves = [t.to("cpu", copy=clone).numpy() for t in leaves]
     elif clone:
         leaves = [t.clone() for t in leaves]
     return unflatten(spec, leaves)
@@ -206,7 +220,7 @@ class Program:
             return "replay"
         return "capture" if self.calls else "eager"
 
-    def __call__(self, inputs, readback: bool = False):
+    def __call__(self, inputs, readback: bool = False, clone: bool = True):
         with self.lock:
             mode = self.mode
             if mode == "eager":
@@ -222,7 +236,7 @@ class Program:
                 self._load(inputs)
             self._replay()
             self.calls += 1
-            return _deliver(self.out, readback, clone=True)
+            return _deliver(self.out, readback, clone)
 
     def _load(self, inputs) -> None:
         with torch.no_grad():
@@ -233,9 +247,20 @@ class Program:
                     continue  # the caller handed the slot itself
                 slot.copy_(_host(x) if isinstance(x, np.ndarray) else x)
 
+    def _new_slots(self, inputs, device) -> list:
+        """The input slots of a capture, on `device`. An input that is
+        another program's own output (a sharded builder's phase 1, handed
+        on uncloned) is its own slot: the replay reads it where that
+        program writes it, and a load copies into it only when a caller
+        hands another tensor."""
+        own = {id(t) for p in programs(self.device) if p.out is not None
+               for t in flatten(p.out)[0]}
+        return [x if id(x) in own and x.is_contiguous() else
+                torch.empty(x.shape, dtype=_dtype(x), device=device)
+                for x in inputs]
+
     def _capture(self, inputs) -> None:
-        self.slots = [torch.empty(s.shape, dtype=_dtype(s),
-                                  device=self.device) for s in inputs]
+        self.slots = self._new_slots(inputs, self.device)
         self._load(inputs)
         args, kwargs = unflatten(self.spec, self.slots)
         graph = torch.cuda.CUDAGraph()
@@ -246,7 +271,10 @@ class Program:
             a = torch.ones((1, 8, 8), device=self.device)
             torch.bmm(a, a)
         side.synchronize()
-        with _CAPTURE_LOCK:
+        # the capture begins on the current device's current stream: the
+        # program's device (a mesh drives several), whose stream is the
+        # side stream (a replay launches on its capture's device itself)
+        with _CAPTURE_LOCK, torch.cuda.device(self.device):
             t = time.perf_counter()
             with recording_launches() as launches, torch.inference_mode():
                 with torch.cuda.graph(graph, stream=side,
@@ -258,7 +286,8 @@ class Program:
             raise TypeError(f"program {self.name}: outputs must be tensors")
         self.graph, self.out, self.launches = graph, out, launches
         self.held = _pool_bytes(self.device, graph.pool()) + sum(
-            t.untyped_storage().nbytes() for t in self.slots)
+            t.untyped_storage().nbytes()
+            for t, x in zip(self.slots, inputs) if t is not x)
 
     def _replay(self) -> None:
         self.graph.replay()
@@ -320,10 +349,11 @@ def clear(device=None) -> None:
 
 
 def run(name: str, key, fn, *args, device, mark=None, readback=False,
-        **kwargs):
+        clone=True, **kwargs):
     """fn(*args, **kwargs) through the program (name, key) of `device`:
     see the module docstring. readback returns the outputs as numpy
-    arrays."""
+    arrays; clone=False returns a replayed program's own output tensors,
+    valid until its next call."""
     dev = torch.device(device)
     inputs, spec = flatten((args, kwargs))
     if mark is not None:
@@ -334,4 +364,4 @@ def run(name: str, key, fn, *args, device, mark=None, readback=False,
         raise ValueError(f"programs: device {dev} (CUDA or the CPU)")
     if dev.index is None:
         dev = torch.device("cuda", torch.cuda.current_device())
-    return cached(name, key, spec, dev, fn)(inputs, readback)
+    return cached(name, key, spec, dev, fn)(inputs, readback, clone)

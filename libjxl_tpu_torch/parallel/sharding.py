@@ -42,17 +42,27 @@ shard has no halo at the image edge: render_tail mirrors there, as it
 does on the whole image (the JAX package's _edge_clamp_halo rebuilt that
 mirror stage by stage). Every composite is new storage (torch.cat), so no
 shard writes into a neighbour's tensor on a mesh that repeats a device.
+
+Each shard body runs as programs (ops/programs.py), the counterpart of
+the JAX builders' jax.jit: one a mesh entry and phase, on the entry's
+device, keyed by the builder's own arguments, the phase and the entry
+(b, r). A builder without an exchange (build_sharded_encode,
+make_sharded_chunk_step) has one phase; a decode builder two, phase 1
+the decode of the entry's rows, phase 2 the filters on the composite. The
+exchange runs between the two (a capture may not allocate on another
+card), and the gather onto the mesh's first device after them.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 
 import numpy as np
 import torch
 
 from ..base.device import resolve_device
-from ..ops import kernels, pipeline
+from ..ops import kernels, pipeline, programs
 from ..ops.staging import per_block
 from ..render.pipeline import gaborish_kernel
 
@@ -62,6 +72,9 @@ GAB_KERNELS = np.stack([gaborish_kernel(*w) for w in GAB_DEFAULT]).astype(
     np.float32)
 ROW_HALO = 8  # rows a decode shard takes from each neighbour: a block row
 FULL_CHANNEL_SCALE = (40.0, 5.0, 3.5)  # build_sharded_decode_full's EPF
+# one builder call at a time: a call hands its programs' own outputs from
+# one phase to the next (programs.run clone=False)
+_RUN_LOCK = threading.Lock()
 
 
 @dataclasses.dataclass(frozen=True, eq=False)
@@ -175,17 +188,6 @@ def _halo_exchange_rows(shards, halo: int, edge: str | None = "replicate"):
     return out
 
 
-def _with_halo(shards, halo: int):
-    """Each row shard with its neighbours' `halo` rows around it, none at
-    the image edge, as new storage: [(composite, rows above it)]."""
-    out = []
-    for x, (above, below) in zip(shards,
-                                 _halo_exchange_rows(shards, halo, None)):
-        parts = [p for p in (above, x, below) if p is not None]
-        out.append((torch.cat(parts, dim=-2), 0 if above is None else halo))
-    return out
-
-
 def _shared_map(sad_mul, what: str) -> torch.Tensor:
     """The SAD multiplier map f32[H, W] that render_tail shares across a
     batch; a [B, H, W] map must repeat one map."""
@@ -203,41 +205,74 @@ def synchronize(devices) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _decode_rows(devs, qimg, qf, dc, ytox, ytob, dm, igs, xdm, bdm,
-                 sigma, sad, tail):
-    """The shard bodies of the sharded decodes on one image group's row
-    shards `devs`: dequant_idct8 of every shard's rows (queued on every
-    device before any exchange), the ROW_HALO exchange, then tail(comp,
-    inv_sigma, sad_mul) of each composite, cropped to the shard's rows.
+def _contiguous(*tensors):
+    return tuple(None if t is None else t.contiguous() for t in tensors)
+
+
+def _entry(name, key, fn, dev, *args, **kwargs):
+    """fn(*args, **kwargs) through the program (name, key) on one mesh
+    entry's device, its outputs the program's own (clone=False): the
+    builder consumes them (the next phase reads them in place, or the
+    gather copies them) before the program runs again, under
+    _RUN_LOCK."""
+    return programs.run(name, key, fn, *args, device=dev, clone=False,
+                        **kwargs)
+
+
+def _k1_rows(qimg, qf, dc, ytox, ytob, dm, igs, xdm, bdm):
+    """Phase 1 of the image-layout decode builders: dequant_idct8 of one
+    mesh entry's rows."""
+    return kernels.dequant_idct8(*_contiguous(qimg, qf, dc, ytox, ytob, dm,
+                                              igs), xdm, bdm)
+
+
+def _composite(above, x, below):
+    """A row shard with the halo rows its neighbours gave it
+    (_halo_exchange_rows; None at the image edge), as new storage."""
+    return torch.cat([p for p in (above, x, below) if p is not None],
+                     dim=-2)
+
+
+def _decode_rows(name, key, b, devs, qimg, qf, dc, ytox, ytob, dm, igs,
+                 xdm, bdm, sigma, sad, tail, **tail_kw):
+    """The sharded decodes on the row shards `devs` of one image group,
+    mesh row b, as two programs a mesh entry (b, r), keyed key + (phase,
+    (b, r)): phase 1 (_k1_rows) runs dequant_idct8 on every entry's rows
+    (queued on every device before any exchange); the ROW_HALO rows of
+    each neighbour's phase-1 output are then copied into phase 2's input
+    slots (a peer copy between cards); phase 2 (tail) reads the entry's
+    own rows where its phase 1 wrote them, builds the composite, runs
+    render_tail and crops it to the entry's rows: tail(above, x, below,
+    inv_sigma, sad_mul, top=, rows=, **tail_kw).
 
     qimg i32/i16[..., 3, H, W], qf i32[..., nby, nbx], dc f32[..., 3, nby,
     nbx], ytox/ytob i32[..., nty, ntx] and sigma f32[..., nby, nbx] are
     global; the tile maps split evenly over the shards. igs: f32 per
-    image; sad f32[H, W]. Returns the cropped tails in row order, each on
-    its shard's device."""
+    image; sad f32[H, W]. Returns phase 2's outputs in row order, each on
+    its entry's device (the program's own tensors)."""
     n = len(devs)
     h = qimg.shape[-2]
     rl = _part(h, n, "image rows", 8)
     tl = _part(ytox.shape[-2], n, "colour tile rows")
     bl = rl // 8
-    xyb = []
-    for r, dev in enumerate(devs):
-        xyb.append(kernels.dequant_idct8(
-            _put(_rows(qimg, qimg.ndim - 2, r * rl, (r + 1) * rl), dev),
-            _put(_rows(qf, qf.ndim - 2, r * bl, (r + 1) * bl), dev),
-            _put(_rows(dc, dc.ndim - 2, r * bl, (r + 1) * bl), dev),
-            _put(_rows(ytox, ytox.ndim - 2, r * tl, (r + 1) * tl), dev),
-            _put(_rows(ytob, ytob.ndim - 2, r * tl, (r + 1) * tl), dev),
-            _put(dm, dev), _put(igs, dev), xdm, bdm))
+    xyb = [_entry(name, key + (1, (b, r)), _k1_rows, dev,
+                  _rows(qimg, qimg.ndim - 2, r * rl, (r + 1) * rl),
+                  _rows(qf, qf.ndim - 2, r * bl, (r + 1) * bl),
+                  _rows(dc, dc.ndim - 2, r * bl, (r + 1) * bl),
+                  _rows(ytox, ytox.ndim - 2, r * tl, (r + 1) * tl),
+                  _rows(ytob, ytob.ndim - 2, r * tl, (r + 1) * tl),
+                  dm, igs, xdm=float(xdm), bdm=float(bdm))
+           for r, dev in enumerate(devs)]
     out = []
-    for r, (comp, top) in enumerate(_with_halo(xyb, ROW_HALO)):
-        dev = devs[r]
+    for r, (dev, (above, below)) in enumerate(zip(
+            devs, _halo_exchange_rows(xyb, ROW_HALO, None))):
+        top = 0 if above is None else ROW_HALO
         y0 = r * rl - top  # the composite's first image row
-        ch = comp.shape[-2]
-        isg = _put(_rows(sigma, sigma.ndim - 2, y0 // 8, (y0 + ch) // 8),
-                   dev)
-        res = tail(comp, isg, _put(sad[y0:y0 + ch], dev))
-        out.append((res, top, rl))
+        y1 = (r + 1) * rl + (0 if below is None else ROW_HALO)
+        out.append(_entry(name, key + (2, (b, r)), tail, dev, above, xyb[r],
+                          below, _rows(sigma, sigma.ndim - 2, y0 // 8,
+                                       y1 // 8), sad[y0:y1], top=top,
+                          rows=rl, **tail_kw))
     return out
 
 
@@ -245,15 +280,39 @@ def _gather(parts, dev, dim: int) -> torch.Tensor:
     return torch.cat([p.to(dev, non_blocking=True) for p in parts], dim=dim)
 
 
+def _hybrid_rows(qcoeffs, qf, dc, ytox, ytob, dm, igs):
+    """Phase 1 of build_sharded_decode: kernels.decode_pixels_hybrid of
+    one mesh entry's images and block rows at global scale 1024 (the
+    "dec" program's body, since a program cannot call another)."""
+    args = _contiguous(qcoeffs, qf, dc, ytox, ytob, dm)
+    if qcoeffs.device.type == "cpu":
+        return kernels.decode_pixels_hybrid(*args, 1024.0)
+    return kernels._pixels_program(*args, igs, 1.0, 1.0)
+
+
+def _gab_rows(above, x, below):
+    """Phase 2 of build_sharded_decode: the 3x3 Gaborish of GAB_DEFAULT on
+    one row shard of linear RGB and a row of each neighbour (its own edge
+    row at the image's top and bottom), those rows then dropped."""
+    gab = programs.constant("sharding_gab_default", x.device,
+                            lambda: GAB_KERNELS)
+    return pipeline.gaborish(_composite(above, x, below), gab)[..., 1:-1, :]
+
+
 def build_sharded_decode(mesh: Mesh, apply_gab: bool = True):
     """The block-layout decode sharded over (batch, rows): each mesh entry
-    makes one kernels.decode_pixels_hybrid call (one dequant_idct8 launch
-    on a card) for its images and block rows, at global scale 1024 and
-    qm multipliers 1; with apply_gab, the exchange of one row of linear
-    RGB with each row neighbour (edge rows replicated at the image's top
-    and bottom) and the 3x3 Gaborish of GAB_DEFAULT (pipeline.gaborish,
+    makes one decode_pixels_hybrid call (one dequant_idct8 launch on a
+    card) for its images and block rows, at global scale 1024 and qm
+    multipliers 1; with apply_gab, the exchange of one row of linear RGB
+    with each row neighbour (edge rows replicated at the image's top and
+    bottom) and the 3x3 Gaborish of GAB_DEFAULT (pipeline.gaborish,
     whose symmetric pad of 1 repeats the edge column as the JAX builder's
     edge pad does).
+
+    Programs (the JAX builder is one jitted program): "sharded_decode"
+    keyed (apply_gab, phase, (b, r)) a mesh entry (b, r); phase 1 the
+    decode, phase 2 (with apply_gab) the Gaborish, its halo rows copied
+    into its slots between the two.
 
     Returns run(qcoeffs, qf, dc, ytox, ytob, dm) on the JAX builder's
     global inputs: qcoeffs i32[batch, 3, nby, nbx, 8, 8], qf i32[batch,
@@ -263,40 +322,52 @@ def build_sharded_decode(mesh: Mesh, apply_gab: bool = True):
     Gives linear RGB f32[batch, 3, nby*8, nbx*8] on the mesh's first
     device."""
     nb, nr = mesh.devices.shape
+    igs = np.asarray(1024.0, dtype=np.float32)
 
     def run(qcoeffs, qf, dc, ytox, ytob, dm):
         bl = _part(qcoeffs.shape[0], nb, "batch")
         rl = _part(qcoeffs.shape[2], nr, "block rows")
         tl = _part(ytox.shape[1], nr, "colour tile rows")
         out = []
-        with torch.inference_mode():
+        with _RUN_LOCK, torch.inference_mode():
             for b in range(nb):
                 bs = slice(b * bl, (b + 1) * bl)
-                rgb = []
-                for r, dev in enumerate(mesh.devices[b]):
-                    rs = slice(r * rl, (r + 1) * rl)
-                    tr = slice(r * tl, (r + 1) * tl)
-                    rgb.append(kernels.decode_pixels_hybrid(
-                        _put(qcoeffs[bs, :, rs], dev),
-                        _put(qf[bs, rs], dev), _put(dc[bs, :, rs], dev),
-                        _put(ytox[bs, tr], dev), _put(ytob[bs, tr], dev),
-                        _put(dm, dev), 1024.0, 1.0, 1.0))
+                devs = mesh.devices[b]
+                rgb = [_entry(
+                    "sharded_decode", (apply_gab, 1, (b, r)), _hybrid_rows,
+                    dev, qcoeffs[bs, :, r * rl:(r + 1) * rl],
+                    qf[bs, r * rl:(r + 1) * rl],
+                    dc[bs, :, r * rl:(r + 1) * rl],
+                    ytox[bs, r * tl:(r + 1) * tl],
+                    ytob[bs, r * tl:(r + 1) * tl], dm, igs)
+                    for r, dev in enumerate(devs)]
                 if apply_gab:
-                    rgb = [pipeline.gaborish(torch.cat([above, x, below],
-                                                       dim=-2),
-                                             GAB_KERNELS)[..., 1:-1, :]
-                           for x, (above, below) in zip(
-                               rgb, _halo_exchange_rows(rgb, 1))]
+                    rgb = [_entry(
+                        "sharded_decode", (apply_gab, 2, (b, r)), _gab_rows,
+                        dev, above, x, below)
+                        for r, (dev, x, (above, below)) in enumerate(zip(
+                            devs, rgb, _halo_exchange_rows(rgb, 1)))]
                 out.append(_gather(rgb, mesh.first, -2))
             return torch.cat(out)
 
     return run
 
 
+def _encode_rows(rgb, qf, dm_inv, dm_y, igs, inv_dc_mul):
+    """build_sharded_encode's program: encode_coefficients of each image
+    of one mesh entry's rows."""
+    one = [pipeline.encode_coefficients(x, f, dm_inv, dm_y, igs, 1.0, 1.0,
+                                        inv_dc_mul)
+           for x, f in zip(rgb.contiguous(), qf.contiguous())]
+    return (torch.stack([o[0] for o in one]),
+            torch.stack([o[1] for o in one]))
+
+
 def build_sharded_encode(mesh: Mesh):
     """The sharded encode compute, RGB -> quantized coefficients + DC
     (pipeline.encode_coefficients on every image of every shard, at global
-    scale 1024 and qm multipliers 1).
+    scale 1024 and qm multipliers 1): one "sharded_encode" program a mesh
+    entry (b, r), keyed (1, (b, r)); no exchange.
 
     Returns run(rgb, qf, dm_inv, dm_y, inv_dc_mul): rgb f32[batch, 3, H,
     W] and qf i32[batch, nby, nbx] with the batch axis over "batch" and H
@@ -304,32 +375,37 @@ def build_sharded_encode(mesh: Mesh):
     replicated. Gives (q i32[batch, 3, nby, nbx, 8, 8], qdc i32[batch, 3,
     nby, nbx]) on the mesh's first device."""
     nb, nr = mesh.devices.shape
+    igs = np.asarray(1024.0, dtype=np.float32)
 
     def run(rgb, qf, dm_inv, dm_y, inv_dc_mul):
         bl = _part(rgb.shape[0], nb, "batch")
         rl = _part(rgb.shape[-2], nr, "image rows", 8)
         qs, dcs = [], []
-        with torch.inference_mode():
+        with _RUN_LOCK, torch.inference_mode():
             for b in range(nb):
-                row_q, row_dc = [], []
-                for r in range(nr):
-                    dev = mesh.devices[b, r]
-                    x = _put(rgb[b * bl:(b + 1) * bl, :,
-                                 r * rl:(r + 1) * rl], dev)
-                    f = _put(qf[b * bl:(b + 1) * bl,
-                                r * rl // 8:(r + 1) * rl // 8], dev)
-                    tables = (_put(dm_inv, dev), _put(dm_y, dev))
-                    idc = _put(inv_dc_mul, dev)
-                    one = [pipeline.encode_coefficients(
-                        x[i], f[i], *tables, 1024.0, 1.0, 1.0, idc)
-                        for i in range(bl)]
-                    row_q.append(torch.stack([o[0] for o in one]))
-                    row_dc.append(torch.stack([o[1] for o in one]))
-                qs.append(_gather(row_q, mesh.first, 2))
-                dcs.append(_gather(row_dc, mesh.first, 2))
+                bs = slice(b * bl, (b + 1) * bl)
+                outs = [_entry(
+                    "sharded_encode", (1, (b, r)), _encode_rows,
+                    mesh.devices[b, r], rgb[bs, :, r * rl:(r + 1) * rl],
+                    qf[bs, r * rl // 8:(r + 1) * rl // 8], dm_inv, dm_y, igs,
+                    inv_dc_mul) for r in range(nr)]
+                qs.append(_gather([o[0] for o in outs], mesh.first, 2))
+                dcs.append(_gather([o[1] for o in outs], mesh.first, 2))
             return torch.cat(qs), torch.cat(dcs)
 
     return run
+
+
+def _full_tail(above, x, below, inv_sigma, sad_mul, top, rows, epf_iters):
+    """Phase 2 of build_sharded_decode_full: Gaborish with GAB_DEFAULT and
+    the EPF passes (render_tail, XYB out) on the composite, the entry's
+    rows, XYB -> linear RGB."""
+    comp = _composite(above, x, below)
+    gab = programs.constant("sharding_gab_default", x.device,
+                            lambda: GAB_KERNELS)
+    res = kernels.render_tail(comp, gab, *_contiguous(inv_sigma, sad_mul),
+                              FULL_CHANNEL_SCALE, epf_iters, out="xyb")
+    return pipeline.xyb_to_rgb(res[..., top:top + rows, :])
 
 
 def build_sharded_decode_full(mesh: Mesh, epf_iters: int = 2):
@@ -337,7 +413,9 @@ def build_sharded_decode_full(mesh: Mesh, epf_iters: int = 2):
     (kernels.dequant_idct8), the ROW_HALO exchange, Gaborish with
     GAB_DEFAULT + the EPF passes of epf_iters (kernels.render_tail, XYB
     out), the crop, XYB -> linear RGB; global scale 1024, qm multipliers
-    1, channel scale FULL_CHANNEL_SCALE.
+    1, channel scale FULL_CHANNEL_SCALE. Programs: "sharded_full" keyed
+    (epf_iters, phase, (b, r)) a mesh entry (b, r), phases as _decode_rows
+    runs them.
 
     Returns run(qimg, qf, dc, ytox, ytob, dm, inv_sigma_px, sad_mul) on
     the JAX builder's global inputs: qimg i32[batch, 3, H, W], qf
@@ -353,26 +431,32 @@ def build_sharded_decode_full(mesh: Mesh, epf_iters: int = 2):
         sigma = per_block(inv_sigma_px, "build_sharded_decode_full")
         sad = _shared_map(sad_mul, "build_sharded_decode_full")
         out = []
-        with torch.inference_mode():
+        with _RUN_LOCK, torch.inference_mode():
             for b in range(nb):
-                devs = list(mesh.devices[b])
                 bs = slice(b * bl, (b + 1) * bl)
-
-                def tail(comp, isg, sd):
-                    return kernels.render_tail(
-                        comp, _put(GAB_KERNELS, comp.device), isg, sd,
-                        FULL_CHANNEL_SCALE, epf_iters, out="xyb")
-
                 shards = _decode_rows(
-                    devs, qimg[bs], qf[bs], dc[bs], ytox[bs], ytob[bs], dm,
+                    "sharded_full", (int(epf_iters),), b,
+                    list(mesh.devices[b]), qimg[bs], qf[bs], dc[bs],
+                    ytox[bs], ytob[bs], dm,
                     np.full(bl, 1024.0, dtype=np.float32), 1.0, 1.0,
-                    sigma[bs], sad, tail)
-                out.append(_gather(
-                    [pipeline.xyb_to_rgb(x[..., top:top + rl, :])
-                     for x, top, rl in shards], mesh.first, -2))
+                    sigma[bs], sad, _full_tail, epf_iters=int(epf_iters))
+                out.append(_gather(shards, mesh.first, -2))
             return torch.cat(out)
 
     return run
+
+
+def _stream_tail(above, x, below, inv_sigma, sad_mul, gab, top, rows,
+                 channel_scale, epf_iters, pass0_sigma_scale,
+                 pass2_sigma_scale):
+    """Phase 2 of build_sharded_decode_stream: render_tail with the
+    stream's Gaborish kernels (or none), EPF passes and sigma scales on
+    the composite, sRGB u8 out, the entry's rows as u8[3, rows, W]."""
+    u8 = kernels.render_tail(
+        _composite(above, x, below), None if gab is None else gab.contiguous(),
+        *_contiguous(inv_sigma, sad_mul), channel_scale, epf_iters,
+        pass0_sigma_scale, pass2_sigma_scale, out="u8srgb")
+    return u8[top:top + rows].permute(2, 0, 1)
 
 
 def build_sharded_decode_stream(mesh: Mesh, lf, igs: float, xdm: float,
@@ -382,7 +466,10 @@ def build_sharded_decode_stream(mesh: Mesh, lf, igs: float, xdm: float,
     to sRGB u8 (dequant_idct8, then render_tail with the stream's
     Gaborish kernels, EPF passes and sigma scales) with the ROW_HALO
     exchange between them. A mesh with more than one batch row uses its
-    first row of devices.
+    first row of devices. Programs: "sharded_stream" keyed by the loop
+    filter's fields (Gaborish on, epf_iters, the two sigma scales, the
+    channel scale), igs, xdm, bdm, then the phase and the entry (0, r),
+    phases as _decode_rows runs them.
 
     Returns run(qimg, qf, dc, ytox, ytob, dm, inv_sigma_px, sad_mul) on
     the JAX builder's global inputs, one image: qimg i32[3, H, W], qf
@@ -395,22 +482,22 @@ def build_sharded_decode_stream(mesh: Mesh, lf, igs: float, xdm: float,
     gab = np.asarray(gab_kernels, dtype=np.float32) if lf.gab else None
     p0 = float(lf.epf_pass0_sigma_scale)
     p2 = float(lf.epf_pass2_sigma_scale)
+    channel_scale = tuple(float(c) for c in channel_scale)
+    key = (bool(lf.gab), epf_iters, p0, p2, channel_scale, float(igs),
+           float(xdm), float(bdm))
     igs = np.float32(igs).reshape(1)
-
-    def tail(comp, isg, sd):
-        return kernels.render_tail(
-            comp, None if gab is None else _put(gab, comp.device), isg, sd,
-            channel_scale, epf_iters, p0, p2, out="u8srgb")
 
     def run(qimg, qf, dc, ytox, ytob, dm, inv_sigma_px, sad_mul):
         _part(qimg.shape[-2], len(devs), "image rows",
               8 * pipeline.COLOR_TILE_BLOCKS)
         sigma = per_block(inv_sigma_px, "build_sharded_decode_stream")
-        with torch.inference_mode():
-            shards = _decode_rows(devs, qimg, qf, dc, ytox, ytob, dm, igs,
-                                  xdm, bdm, sigma, _tensor(sad_mul), tail)
-            return _gather([u8[top:top + rl].permute(2, 0, 1)
-                            for u8, top, rl in shards], mesh.first, 1)
+        with _RUN_LOCK, torch.inference_mode():
+            shards = _decode_rows(
+                "sharded_stream", key, 0, devs, qimg, qf, dc, ytox, ytob, dm,
+                igs, xdm, bdm, sigma, _tensor(sad_mul), _stream_tail,
+                gab=gab, channel_scale=channel_scale, epf_iters=epf_iters,
+                pass0_sigma_scale=p0, pass2_sigma_scale=p2)
+            return _gather(shards, mesh.first, 1)
 
     return run
 
@@ -419,7 +506,9 @@ def make_sharded_chunk_step(mesh: Mesh):
     """The streaming encoder's per-DC-group step (pipeline.encode_step_xyb)
     with its rows sharded over the mesh's first row of devices, the
     multi-device encode decomposition (enc_frame.cc:1975
-    EncodeFrameStreaming).
+    EncodeFrameStreaming): one "sharded_chunk" program a mesh entry (0,
+    r), keyed (1, (0, r)), the single-device step's body (vardct/streaming
+    _step_program); no exchange.
 
     Every op of the step is row-local at 64-row granularity (DCT blocks,
     64-px CfL tiles; the quant field comes from the host), so each
@@ -431,6 +520,8 @@ def make_sharded_chunk_step(mesh: Mesh):
     device: xyb f32[3, h, w] with h sharded at colour tile boundaries;
     numpy (q, dc, qf, ytox, ytob, sharp), read back after every device
     has finished."""
+    from ..vardct.streaming import _step_program
+
     devs = list(mesh.devices[0])
 
     def step(xyb, dm_inv, dm, inv_global_scale, base_quant, x_dm_mult,
@@ -438,13 +529,13 @@ def make_sharded_chunk_step(mesh: Mesh):
         rl = _part(xyb.shape[-2], len(devs), "DC group rows",
                    8 * pipeline.COLOR_TILE_BLOCKS)
         bl = rl // 8
-        outs = []
-        with torch.inference_mode():
-            for r, dev in enumerate(devs):
-                outs.append(pipeline.encode_step_xyb(
-                    _put(xyb[:, r * rl:(r + 1) * rl], dev), _put(dm_inv, dev),
-                    _put(dm, dev), inv_global_scale, base_quant, x_dm_mult,
-                    b_dm_mult, qf_in=_put(qf_in[r * bl:(r + 1) * bl], dev)))
+        scalars = tuple(float(v) for v in (inv_global_scale, base_quant,
+                                           x_dm_mult, b_dm_mult))
+        with _RUN_LOCK, torch.inference_mode():
+            outs = [_entry("sharded_chunk", (1, (0, r)), _step_program, dev,
+                           xyb[:, r * rl:(r + 1) * rl], dm_inv, dm,
+                           qf_in[r * bl:(r + 1) * bl], *scalars)
+                    for r, dev in enumerate(devs)]
             synchronize(devs)
             # q and dc carry the block rows on axis 1, the maps on axis 0
             return tuple(

@@ -1409,34 +1409,57 @@ _INFO_LOSS_MUL = 320.0  # tuned: RD-dominates DCT8-only on noisy
 
 
 def _tile_cost_device(state, xyb, rows, cols, kind, tby, tbx, device):
-    """Torch body of _batched_tile_cost on `device`: forward DCT of every
-    candidate tile, quantize, entropy bits + 8-norm info loss, in the JAX
-    package's f32 forms; the opsin image is uploaded once per ACS search
-    (cached on the state)."""
-    import torch
-
-    from ..ops.dct import fwd_matrix, inv_matrix
-    from ..ops.pipeline import _powf
+    """_batched_tile_cost on `device`: the "tile_cost" program
+    (_tile_cost_program) at the JAX package's static key (rows, cols, tby,
+    tbx). The opsin image is uploaded once per ACS search (cached on the
+    state) and enters as an input; the kind enters as its matrices, the
+    per-tile field and the global scale as data, as in the JAX program."""
+    from ..ops import programs
     from ..ops.staging import to_device
 
     cache = getattr(state, "_xyb_dev", None)
     if cache is None or cache[0] is not xyb or cache[1].device != device:
         cache = (xyb, to_device(np.asarray(xyb, dtype=np.float32), device))
         state._xyb_dev = cache
-    x = cache[1]
     cy, cx = rows // 8, cols // 8
-    qf, dm_inv, dm, chan_mul, fr, fc, ir, ic = to_device(tuple(
-        np.asarray(a, dtype=np.float32) for a in (
-            state.raw_quant_field[:tby * cy, :tbx * cx].reshape(
-                tby, cy, tbx, cx).mean(axis=(1, 3)),
-            np.stack([state.matrices.inv_matrix(kind, c) for c in range(3)]),
-            np.stack([state.matrices.dequant_matrix(kind, c)
-                      for c in range(3)]),
-            np.array([10.2, 1.0, 1.03]) ** 8, fwd_matrix(rows),
-            fwd_matrix(cols), inv_matrix(rows), inv_matrix(cols))), device)
+    qf = state.raw_quant_field[:tby * cy, :tbx * cx].reshape(
+        tby, cy, tbx, cx).mean(axis=(1, 3)).astype(np.float32)
+    dm_inv, dm = (np.stack([get(kind, c) for c in range(3)]).astype(
+        np.float32) for get in (state.matrices.inv_matrix,
+                                state.matrices.dequant_matrix))
+    out = programs.run(
+        "tile_cost", (rows, cols, tby, tbx), _tile_cost_program, cache[1],
+        qf, dm_inv, dm, np.asarray(state.quantizer.inv_global_scale,
+                                   dtype=np.float32),
+        rows=rows, cols=cols, tby=tby, tbx=tbx, device=device,
+        readback=True)
+    return out.astype(np.float64)
+
+
+def _tile_cost_program(x, qf, dm_inv, dm, igs, rows, cols, tby, tbx):
+    """The JAX package's _TILE_COST_JIT in torch: forward DCT of every
+    candidate rows x cols tile of the opsin image x f32[3, H, W], quantize
+    with the per-tile field qf f32[tby, tbx] and the kind's matrices
+    dm_inv, dm f32[3, min, max] at the global scale igs (0-d), entropy
+    bits + 8-norm info loss, in the JAX package's f32 forms; the DCT
+    matrices and channel weights are per-device constants."""
+    import torch
+
+    from ..ops import programs
+    from ..ops.dct import fwd_matrix, inv_matrix
+    from ..ops.pipeline import _powf
+
+    dev = x.device
+    fr, fc, ir, ic = (programs.constant(
+        f"{name}{n}", dev, lambda f=f, n=n: f(n).astype(np.float32))
+        for name, f, n in (("dct_fwd", fwd_matrix, rows),
+                           ("dct_fwd", fwd_matrix, cols),
+                           ("dct_inv", inv_matrix, rows),
+                           ("dct_inv", inv_matrix, cols)))
+    chan_mul = programs.constant(
+        "tile_chan_mul", dev,
+        lambda: (np.array([10.2, 1.0, 1.03]) ** 8).astype(np.float32))
     dm_inv, dm = dm_inv[:, None, None], dm[:, None, None]
-    igs = torch.tensor(np.float32(state.quantizer.inv_global_scale),
-                       device=device)
     crop = x[:, :tby * rows, :tbx * cols]
     tiles = crop.reshape(3, tby, rows, tbx, cols).permute(0, 1, 3, 2, 4)
     co = torch.einsum("ur,ctmrk,vk->ctmuv", fr, tiles, fc)
@@ -1459,8 +1482,7 @@ def _tile_cost_device(state, xyb, rows, cols, kind, tby, tbx, device):
     size = rows * cols
     loss_scalar = _powf(loss8.sum(dim=0) / size, 0.125) * size \
         / (igs / qf)
-    out = bits.sum(dim=0) + _INFO_LOSS_MUL * loss_scalar + 24.0
-    return out.cpu().numpy().astype(np.float64)
+    return bits.sum(dim=0) + _INFO_LOSS_MUL * loss_scalar + 24.0
 
 
 def _batched_tile_cost(state: VarDCTState, xyb: np.ndarray, rows: int,

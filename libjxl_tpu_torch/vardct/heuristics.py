@@ -240,12 +240,14 @@ def _trial(co, dc, qfr, dm, dm_inv, igs, i8, gab, inv_sigma, sad_mul,
 def _refine_device(state, co, dc, dm, dm_inv, inv_gs, gab, lf, xyb_orig,
                    qf_float, target, iters, nby, nbx, device):
     """Torch body of refine_quant_field on `device`: each round's trial
-    (_trial, with one render_tail launch when the frame has Gaborish or
-    EPF) and butteraugli diffmap run there, and the per-block maxima come
-    back; only the field update (_refine_ratio) runs on the host."""
-    import torch
-
+    (the "trial" program, _trial with one render_tail launch when the
+    frame has Gaborish or EPF, at the JAX package's static key (gab_on,
+    epf_iters)) and butteraugli diffmap (the "diffmap" program) run
+    there, the trial's image going from the one program's output to the
+    other's input on the device, and the per-block maxima come back; only
+    the field update (_refine_ratio) runs on the host."""
     from ..metrics.butteraugli_torch import butteraugli_diffmap_torch
+    from ..ops import programs
     from ..ops.dct import inv_matrix
     from ..ops.staging import f32, sad_mul, to_device
     from ..ops.xyb import xyb_to_linear_rgb
@@ -261,18 +263,20 @@ def _refine_device(state, co, dc, dm, dm_inv, inv_gs, gab, lf, xyb_orig,
         else to_device(np.stack(gab).astype(np.float32), device)
     sad = to_device(sad_mul(lf, h, w), device) if epf_iters else None
     cs = tuple(f32(v) for v in lf.epf_channel_scale)
-    igs = torch.tensor(np.float32(inv_gs), device=device)
+    igs = np.asarray(inv_gs, dtype=np.float32)
     for _ in range(iters):
         qfr = np.maximum(np.round(qf_float), 1.0).astype(np.float32)
         isg = None
         if epf_iters:
-            isg = to_device(compute_sigma(
+            isg = compute_sigma(
                 lf, state.quantizer.global_scale_float,
                 qfr.astype(np.int32), state.epf_sharpness).astype(
-                    np.float32), device)
-        lin = _trial(co_t, dc_t, to_device(qfr, device), dm_t, dmi_t, igs,
-                     i8, gab_t, isg, sad, cs, f32(lf.epf_pass0_sigma_scale),
-                     f32(lf.epf_pass2_sigma_scale), epf_iters)
+                    np.float32)
+        lin = programs.run(
+            "trial", (gab is not None, epf_iters), _trial, co_t, dc_t, qfr,
+            dm_t, dmi_t, igs, i8, gab_t, isg, sad, cs,
+            f32(lf.epf_pass0_sigma_scale), f32(lf.epf_pass2_sigma_scale),
+            epf_iters, device=device)
         dmap = butteraugli_diffmap_torch(lin, lin_orig)
         berr = dmap.reshape(nby, 8, nbx, 8).amax(dim=(1, 3)).cpu().numpy()
         qf_float = np.clip(qf_float * _refine_ratio(berr, target),

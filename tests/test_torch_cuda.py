@@ -1028,3 +1028,180 @@ def test_capture_unsafe_program_raises(cuda, unsafe):
         programs.run("unsafe", (), body, x, device=cuda)
     (prog,) = programs.programs(cuda)
     assert prog.graph is None
+
+
+def _heuristics_state(h, w, seed):
+    """An encoder state of an h x w frame with a seeded raw quant field,
+    and a seeded opsin image: the tile cost's inputs."""
+    from libjxl_tpu_torch.io.frame_header import FrameHeader
+    from libjxl_tpu_torch.io.headers import CodecMetadata, SizeHeader
+    from libjxl_tpu_torch.vardct.frame import VarDCTState
+
+    rng = np.random.default_rng(seed)
+    meta = CodecMetadata()
+    meta.size = SizeHeader().set(w, h)
+    fh = FrameHeader(meta)
+    state = VarDCTState(fh, fh.frame_dimensions())
+    state.quantizer.compute_global_scale_and_quant(1.0, 2.0)
+    state.raw_quant_field[:] = rng.integers(5, 40,
+                                            state.raw_quant_field.shape)
+    return state, rng.normal(0, 0.2, (3, h, w)).astype(np.float32)
+
+
+def _heuristics_cases(cuda):
+    """(program name, fn, args) of the encoder heuristics' programs on
+    small inputs: a tile size, the refinement's trial (Gaborish and two
+    EPF passes), the diffmap."""
+    from libjxl_tpu_torch.metrics.butteraugli_torch import (
+        butteraugli_diffmap_torch)
+    from libjxl_tpu_torch.ops import programs
+    from libjxl_tpu_torch.vardct import ac_strategy as acs
+    from libjxl_tpu_torch.vardct import heuristics
+    from libjxl_tpu_torch.vardct.frame import _tile_cost_device
+
+    state, xyb = _heuristics_state(96, 136, 17)
+    rng = np.random.default_rng(18)
+    nby, nbx = 12, 17
+    co = rng.normal(0, 0.05, (3, nby, nbx, 8, 8)).astype(np.float32)
+    dm = rng.uniform(3e-4, 0.01, (3, 8, 8)).astype(np.float32)
+    xyb_t, isg, gab, sad = _tail_inputs(19, 1, nby * 8, nbx * 8)
+    trial_args = [_t(a).to(cuda) for a in (
+        co, co[:, :, :, 0, 0].copy(), dm, 1.0 / dm,
+        tpl._consts()["inv8"], gab, sad)]
+    qfr = rng.integers(2, 30, (nby, nbx)).astype(np.float32)
+
+    def trial():
+        co_t, dc_t, dm_t, dmi_t, i8, gab_t, sad_t = trial_args
+        return programs.run(
+            "trial", (True, 2), heuristics._trial, co_t, dc_t, qfr, dm_t,
+            dmi_t, np.asarray(0.125, np.float32), i8, gab_t, isg[0], sad_t,
+            CS, 0.9, 6.5, 2, device=cuda)
+
+    a = rng.uniform(0, 1, (3, 96, 136)).astype(np.float32)
+    b = np.clip(a + rng.normal(0, 0.01, a.shape), 0, 1).astype(np.float32)
+    return {
+        "tile_cost": (_tile_cost_device, (
+            state, xyb, 32, 16, acs.QUANT_TABLE[acs.DCT32X16], 3, 8, cuda)),
+        "trial": (trial, ()),
+        "diffmap": (butteraugli_diffmap_torch, (_t(a).to(cuda),
+                                                _t(b).to(cuda))),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["tile_cost", "trial", "diffmap"])
+def test_heuristics_program_replay_equals_its_eager_call(cuda, name):
+    """The encoder heuristics' programs (a tile size, the trial, the
+    diffmap): each replay is its eager call bitwise, with the same
+    launches (render_tail once a trial)."""
+    fn, args = _heuristics_cases(cuda)[name]
+    prog, outs, launches = _three_calls(name, fn, *args)
+    assert prog.mode == "replay" and prog.calls == 3
+    assert _same(outs[0], outs[1]) and _same(outs[0], outs[2])
+    assert launches[0] == launches[1] == launches[2] == (
+        {"render_tail": 1} if name == "trial" else {})
+
+
+def _builder_cases(devices):
+    """(program name, the builder's run, its arguments, launches a call)
+    of each sharded builder on a (batch 2, rows 2) mesh of four entries
+    of `devices` (the chunk step, the stream render and the serving
+    decode on 4 rows)."""
+    from libjxl_tpu_torch.api import codestream, tpu_codec
+    from libjxl_tpu_torch.parallel import dryrun, sharding
+    from libjxl_tpu_torch.vardct.quant_weights import library_tables
+
+    mesh = sharding.make_mesh(devices, batch=2)
+    rows = sharding.make_mesh(devices)
+    rng = np.random.default_rng(97)
+    b, h, w = 2, 256, 192
+    q, qf, dc, ytox, ytob, dm, _ = _dequant_inputs(98, b, h, w)
+    isg = rng.uniform(-2.5, -0.3, (b, h // 8, w // 8)).astype(np.float32)
+    ispx = np.repeat(np.repeat(isg, 8, 1), 8, 2)
+    sad = _sad_mul_map(h, w, 2.0 / 3.0).astype(np.float32)
+    (blocks, bqf, bdc, bx, bb, bdm, _), _, _, _ = _block_inputs(99, 2, 32, 16)
+    dm_t, dm_inv = (a.astype(np.float32) for a in library_tables()[0])
+    sr = dryrun.StreamRender.of(codestream.encode_lossy(
+        dryrun.photo(256, np.random.default_rng(7)), distance=1.0, effort=3,
+        device=None))
+    xyb = rng.normal(0, 0.1, (3, 256, 64)).astype(np.float32)
+    step_qf = rng.integers(8, 40, (32, 8)).astype(np.int32)
+    k1k2 = {"dequant_idct8": 4, "render_tail": 4}
+    streams = [codestream.encode_lossy(
+        np.clip(rng.normal(120, 30, (96, 136, 3)), 0, 255).astype(np.uint8),
+        distance=1.0, effort=3, device=None) for _ in range(4)]
+    return {
+        "sharded_full": (sharding.build_sharded_decode_full(mesh),
+                         (q, qf, dc, ytox, ytob, dm, ispx, sad), k1k2),
+        "sharded_stream": (sr.sharded(rows), sr.args, k1k2),
+        "sharded_decode": (sharding.build_sharded_decode(mesh),
+                           (blocks, bqf, bdc, bx, bb, bdm),
+                           {"dequant_idct8": 4}),
+        "sharded_encode": (sharding.build_sharded_encode(mesh), (
+            rng.uniform(0, 1, (2, 3, 64, 64)).astype(np.float32),
+            rng.integers(32, 96, (2, 8, 8)).astype(np.int32), dm_inv,
+            dm_t[1], np.array([512.0, 64.0, 32.0], np.float32)), {}),
+        "sharded_chunk": (sharding.make_sharded_chunk_step(rows), (
+            xyb, dm_inv, dm_t, 8.716, 19.0, 1.0, 1.0, step_qf), {}),
+        "batch": (tpu_codec.decode_batch_sharded, (streams, rows), k1k2),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["sharded_full", "sharded_stream",
+                                  "sharded_decode", "sharded_encode",
+                                  "sharded_chunk", "batch"])
+def test_sharded_builder_programs_replay_their_eager_call(cuda, name):
+    """Each sharded builder's programs (a phase a mesh entry), on four
+    entries of the cards in turn (four real cards where the machine has
+    them, else a virtual mesh of cuda:0), and decode_batch_sharded's
+    "batch" programs: three calls from an empty cache, eager, capture +
+    replay, replay; every program replays, each call equals the first
+    bitwise, with the launches of the eager call."""
+    from libjxl_tpu_torch.ops import programs
+    from libjxl_tpu_torch.parallel import dryrun
+
+    devices = dryrun.mesh_devices(4, "cuda")
+    run, args, want = _builder_cases(devices)[name]
+    programs.clear()
+    outs, launches = [], []
+    for _ in range(3):
+        out, n = _launched(run, *args)
+        outs.append(tuple(out) if isinstance(out, (tuple, list)) else out)
+        launches.append(n)
+    cards = set(devices)
+    progs = [p for d in cards for p in programs.programs(d)
+             if p.name == name]
+    if name == "batch":  # one program a card, shared by its entries
+        assert len(progs) == len(cards)
+    else:
+        phases = 2 if name in ("sharded_full", "sharded_stream",
+                               "sharded_decode") else 1
+        assert len(progs) == 4 * phases
+    # a builder's program runs once a call; a card's "batch" program once
+    # for each of its entries
+    calls = 3 * (4 // len(cards) if name == "batch" else 1)
+    assert all(p.mode == "replay" and p.calls == calls for p in progs)
+    assert _same(outs[0], outs[1]) and _same(outs[0], outs[2])
+    assert launches == [want] * 3
+
+
+@pytest.mark.cuda
+def test_a_launch_on_another_card_keeps_the_current_device(cuda):
+    """K1 and K2 launched on the last card while the first is current
+    leave the first current: PyTorch places every call that names no card
+    on the current device, and a sharded builder launches on every card
+    of its mesh."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    other = torch.device("cuda", torch.cuda.device_count() - 1)
+    xyb, isg, gab, sad = (_t(a).to(other)
+                          for a in _tail_inputs(18, 1, 40, 136))
+    with torch.cuda.device(cuda):
+        got = kernels.dequant_idct8(
+            *[_t(a).to(other) for a in _dequant_inputs(19, 1, 64, 64)],
+            0.8, 1.0)
+        assert torch.cuda.current_device() == cuda.index
+        out = kernels.render_tail(xyb, gab, isg, sad, CS, 2, out="xyb")
+        assert torch.cuda.current_device() == cuda.index
+    assert got.device == out.device == other

@@ -20,8 +20,10 @@ from libjxl_tpu.api import tpu_codec as jtc
 from libjxl_tpu_torch.api import codestream, tpu_codec
 from libjxl_tpu_torch.base.device import (launch_counter, launch_counts,
                                           recording_launches)
+from libjxl_tpu_torch.metrics import butteraugli_torch
 from libjxl_tpu_torch.ops import ans_kernel, kernels, pipeline, programs
-from libjxl_tpu_torch.vardct import streaming
+from libjxl_tpu_torch.parallel import sharding
+from libjxl_tpu_torch.vardct import frame, heuristics, streaming
 from tests.test_ans_kernel import _image
 
 CORPUS = pathlib.Path(__file__).resolve().parent / "data" / "conformance"
@@ -157,6 +159,67 @@ def _program_calls():
         "chunk_step": (streaming._step_program,
                        (srgb, 1 / dm, dm, qf[:4, :5], 0.125, 9.0, 1.0, 1.0),
                        {}),
+        **_heuristics_calls(rng, dm, gabk),
+        **_sharded_calls(rng, blk, gabk),
+    }
+
+
+def _heuristics_calls(rng, dm, gabk):
+    """The encoder heuristics' programs: a 16x8 tile size on a 32x40
+    opsin image, the refinement's trial (Gaborish, two EPF passes), the
+    diffmap."""
+    nby, nbx = 4, 5
+    dm16 = rng.uniform(3e-4, 0.01, (3, 8, 16)).astype(np.float32)
+    isg = rng.uniform(-2.5, -0.3, (nby, nbx)).astype(np.float32)
+    lin = rng.uniform(0, 1, (2, 3, 32, 40)).astype(np.float32)
+    co = rng.normal(0, 0.05, (3, nby, nbx, 8, 8)).astype(np.float32)
+    return {
+        "tile_cost": (frame._tile_cost_program, (
+            rng.normal(0, 0.2, (3, 32, 40)).astype(np.float32),
+            rng.uniform(2, 30, (2, 5)).astype(np.float32), 1 / dm16, dm16,
+            np.asarray(0.125, np.float32)),
+            dict(rows=16, cols=8, tby=2, tbx=5)),
+        "trial": (heuristics._trial, (
+            co, co[:, :, :, 0, 0].copy(),
+            rng.integers(2, 30, (nby, nbx)).astype(np.float32), dm, 1 / dm,
+            np.asarray(0.125, np.float32), pipeline._consts()["inv8"], gabk,
+            isg, np.ones((32, 40), np.float32)),
+            dict(channel_scale=(40.0, 5.0, 3.5), pass0_sigma_scale=0.9,
+                 pass2_sigma_scale=6.5, epf_iters=2)),
+        "diffmap": (butteraugli_torch._diffmap, (lin[0], lin[1]),
+                    dict(hf_asymmetry=0.8, xmul=1.0, intensity_target=80.0)),
+    }
+
+
+def _sharded_calls(rng, blk, gabk):
+    """The sharded builders' phase bodies on one mesh entry's inputs:
+    "<program>.<phase>" (the chunk step's body is chunk_step's)."""
+    blocks, qf, dc, ytox, ytob, dm, igs = blk
+    w = 48
+    xyb = rng.normal(0.3, 0.1, (1, 3, 32, w)).astype(np.float32)
+    sigma = rng.uniform(-2.5, -0.3, (1, 4, w // 8)).astype(np.float32)
+    sad = np.ones((32, w), np.float32)
+    rgb = rng.uniform(0, 1, (3, 17, 40)).astype(np.float32)
+    qimg = rng.integers(-3, 4, (3, 32, w)).astype(np.int32)
+    return {
+        "sharded_decode.1": (sharding._hybrid_rows, blk, {}),
+        "sharded_decode.2": (sharding._gab_rows,
+                             (rgb[:, :1], rgb[:, 1:-1], None), {}),
+        "sharded_encode": (sharding._encode_rows, (
+            rng.uniform(0, 1, (1, 3, 32, w)).astype(np.float32),
+            qf[None], 1 / dm, dm[1], igs,
+            np.array([512.0, 64.0, 32.0], np.float32)), {}),
+        "sharded_full.1": (sharding._k1_rows, (
+            qimg, qf, dc, ytox, ytob, dm, np.ones(1, np.float32) * igs),
+            dict(
+                xdm=1.0, bdm=1.0)),
+        "sharded_full.2": (sharding._full_tail, (
+            xyb[:, :, :8], xyb[:, :, 8:24], xyb[:, :, 24:], sigma, sad),
+            dict(top=8, rows=16, epf_iters=2)),
+        "sharded_stream.2": (sharding._stream_tail, (
+            None, xyb[0, :, :24], xyb[0, :, 24:], sigma[0], sad, gabk),
+            dict(top=0, rows=24, channel_scale=(40.0, 5.0, 3.5),
+                 epf_iters=2, pass0_sigma_scale=0.9, pass2_sigma_scale=6.5)),
     }
 
 
@@ -171,8 +234,11 @@ def _tensors(args):
             if isinstance(a, np.ndarray) else a for a in args]
 
 
-@pytest.mark.parametrize("name", ["batch", "dec", "dec_full", "enc",
-                                  "chunk_prep", "chunk_step"])
+@pytest.mark.parametrize("name", [
+    "batch", "dec", "dec_full", "enc", "chunk_prep", "chunk_step",
+    "tile_cost", "trial", "diffmap", "sharded_decode.1", "sharded_decode.2",
+    "sharded_encode", "sharded_full.1", "sharded_full.2",
+    "sharded_stream.2"])
 def test_program_on_cpu_equals_the_direct_call(name):
     """programs.run on the CPU runs the body on the plain twins and
     caches nothing."""
@@ -295,13 +361,13 @@ class _StubGraph:
 
 @pytest.fixture
 def stub_capture(monkeypatch):
-    """Program._capture without CUDA: slots on the CPU, the body run once
+    """Program._capture without CUDA: slots on the CPU (another program's
+    output adopted as Program._new_slots makes them), the body run once
     under recording_launches, a _StubGraph that reruns it into the same
-    output tensors."""
+    output tensors (every tensor of the output tree)."""
 
     def capture(self, inputs):
-        self.slots = [torch.zeros(tuple(x.shape),
-                                  dtype=programs._dtype(x)) for x in inputs]
+        self.slots = self._new_slots(inputs, "cpu")
         self._load(inputs)
         args, kwargs = programs.unflatten(self.spec, self.slots)
         with recording_launches() as launches:
@@ -313,13 +379,17 @@ def stub_capture(monkeypatch):
             # a graph's replay runs no Python: its launches are counted
             # from the capture's record alone
             with recording_launches():
-                self.out.copy_(self.fn(*args, **kwargs))
+                fresh = self.fn(*args, **kwargs)
+            for held, new in zip(programs.flatten(self.out)[0],
+                                 programs.flatten(fresh)[0]):
+                held.copy_(new)
 
         self.graph = _StubGraph(again)
 
     monkeypatch.setattr(programs.Program, "_capture", capture)
     monkeypatch.setattr(programs, "_on", lambda x, device: torch.from_numpy(
-        np.ascontiguousarray(x)) if isinstance(x, np.ndarray) else x)
+        np.ascontiguousarray(x)) if isinstance(x, np.ndarray)
+        else x.contiguous())
     programs.clear()
     yield
     programs.clear()

@@ -100,11 +100,13 @@ def test_halo_exchange_matches_the_jax_exchange(halo, rows):
     np.testing.assert_array_equal(_cat_halo(shards, halo).numpy(),
                                   np.asarray(ref))
     # without edge rows: the composites the shard bodies render
-    got = ts._with_halo(shards, halo)
-    assert [top for _, top in got] == [0] + [halo] * (rows - 1)
+    halos = ts._halo_exchange_rows(shards, halo, None)
+    assert [a is None for a, _ in halos] == [True] + [False] * (rows - 1)
+    assert [b is None for _, b in halos] == [False] * (rows - 1) + [True]
     whole = torch.from_numpy(x)
-    for r, (comp, top) in enumerate(got):
-        y0 = r * local - top
+    for r, (s, (above, below)) in enumerate(zip(shards, halos)):
+        comp = ts._composite(above, s, below)
+        y0 = r * local - (0 if above is None else halo)
         assert torch.equal(comp, whole[:, y0:y0 + comp.shape[-2]])
 
 
