@@ -10,6 +10,7 @@ from __future__ import annotations
 
 import numpy as np
 
+from ..base.device import span, spanned
 from ..base.status import JXLError
 from ..io.bits import BitReader, BitWriter
 from ..io.frame_header import ENC_MODULAR, ENC_VARDCT, FrameHeader
@@ -648,6 +649,7 @@ def _stash_reference_frame(r, fh, meta, reference_frames,
             for e, mv in zip(ref_ec, maxvals)]
 
 
+@spanned("jxl.decode")
 def decode(data: bytes, target_nits: float = None,
            num_threads: int = 0, device="cuda",
            decode_info: dict = None, color_management: bool = None,
@@ -695,7 +697,8 @@ def decode(data: bytes, target_nits: float = None,
         raise JXLError(f"unsupported pixel_format {pixel_format!r}")
     want_float = pixel_format is not None
     r = BitReader(data)
-    meta = parse_codestream_header(r)
+    with span("jxl.headers"):
+        meta = parse_codestream_header(r)
     bits = meta.m.bit_depth.bits_per_sample
     if want_float:
         color_management = False  # float output takes the sRGB leg
@@ -710,8 +713,9 @@ def decode(data: bytes, target_nits: float = None,
     reference_extra = [None] * 4
     dc_frames = [None] * 5  # by dc_level (kUseDcFrame pyramid)
     while True:
-        fh = FrameHeader(meta)
-        fh.read(r)
+        with span("jxl.headers"):
+            fh = FrameHeader(meta)
+            fh.read(r)
         if fh.frame_type == FT_DC:
             # 1:8 DC frame for the next frame (frame_header.h:348);
             # the reference codes it MODULAR by default (XYB ints =

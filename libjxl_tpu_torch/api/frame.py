@@ -12,6 +12,7 @@ from dataclasses import dataclass
 
 import numpy as np
 
+from ..base.device import span
 from ..base.status import JXLError
 from ..io.bits import BitReader, BitWriter
 from ..io.frame_header import (
@@ -198,11 +199,16 @@ def decode_frame_sections(r: BitReader, fh: FrameHeader,
     Callbacks receive a BitReader positioned at their section.
     runner: parallel runner for the independent DC/AC group sections
     (ProcessSections' RunOnPool, dec_frame.cc:568); None = in order.
+    The TOC read is a jxl.headers span, and the sections are three spans
+    (base/device.span): jxl.frame.dc (DC global and every DC group),
+    jxl.frame.ac_global and jxl.frame.ac (the bulk call or every AC
+    group).
     """
     fd = fh.frame_dimensions()
     num_passes = fh.passes.num_passes
     n = num_toc_entries(fd, num_passes)
-    offsets, sizes, total = read_group_offsets(n, r)
+    with span("jxl.headers"):
+        offsets, sizes, total = read_group_offsets(n, r)
     r.jump_to_byte_boundary()
     base = r.total_bits_consumed() // 8
     data = r.data
@@ -213,39 +219,47 @@ def decode_frame_sections(r: BitReader, fh: FrameHeader,
 
     if fd.num_groups == 1 and num_passes == 1:
         sr = section_reader(0)
-        decode_dc_global(sr)
-        decode_dc_group(0, sr)
-        decode_ac_global(sr)
-        decode_ac_group(0, 0, sr)
+        with span("jxl.frame.dc"):
+            decode_dc_global(sr)
+            decode_dc_group(0, sr)
+        with span("jxl.frame.ac_global"):
+            decode_ac_global(sr)
+        with span("jxl.frame.ac"):
+            decode_ac_group(0, 0, sr)
     else:
         from ..parallel.runner import SequentialRunner
 
         if runner is None:
             runner = SequentialRunner()
-        decode_dc_global(section_reader(0))
-        runner.run([
-            (lambda g=g: decode_dc_group(g, section_reader(1 + g)))
-            for g in range(fd.num_dc_groups)])
-        decode_ac_global(section_reader(1 + fd.num_dc_groups))
-        handled = False
-        if decode_ac_bulk is not None:
-            # one native call per pass over all group sections
-            # (see vardct.frame.decode_ac_bulk_native)
-            per_pass = []
-            for p in range(num_passes):
-                i0 = 2 + fd.num_dc_groups + p * fd.num_groups
-                per_pass.append((
-                    [base + offsets[i0 + g] for g in range(fd.num_groups)],
-                    [sizes[i0 + g] for g in range(fd.num_groups)]))
-            handled = decode_ac_bulk(data, per_pass)
-        if not handled:
-            tasks = []
-            for p in range(num_passes):
-                for g in range(fd.num_groups):
-                    idx = 2 + fd.num_dc_groups + p * fd.num_groups + g
-                    tasks.append(lambda g=g, p=p, idx=idx: decode_ac_group(
-                        g, p, section_reader(idx)))
-            runner.run(tasks)
+        with span("jxl.frame.dc"):
+            decode_dc_global(section_reader(0))
+            runner.run([
+                (lambda g=g: decode_dc_group(g, section_reader(1 + g)))
+                for g in range(fd.num_dc_groups)])
+        with span("jxl.frame.ac_global"):
+            decode_ac_global(section_reader(1 + fd.num_dc_groups))
+        with span("jxl.frame.ac"):
+            handled = False
+            if decode_ac_bulk is not None:
+                # one native call per pass over all group sections
+                # (see vardct.frame.decode_ac_bulk_native)
+                per_pass = []
+                for p in range(num_passes):
+                    i0 = 2 + fd.num_dc_groups + p * fd.num_groups
+                    per_pass.append((
+                        [base + offsets[i0 + g]
+                         for g in range(fd.num_groups)],
+                        [sizes[i0 + g] for g in range(fd.num_groups)]))
+                handled = decode_ac_bulk(data, per_pass)
+            if not handled:
+                tasks = []
+                for p in range(num_passes):
+                    for g in range(fd.num_groups):
+                        idx = 2 + fd.num_dc_groups + p * fd.num_groups + g
+                        tasks.append(
+                            lambda g=g, p=p, idx=idx: decode_ac_group(
+                                g, p, section_reader(idx)))
+                runner.run(tasks)
     # advance the outer reader past all sections
     r.skip_bits(total * 8)
 

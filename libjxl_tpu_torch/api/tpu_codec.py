@@ -51,7 +51,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..base.device import resolve_device
+from ..base.device import resolve_device, span, spanned
 from ..base.status import JXLError
 from ..io.bits import BitReader, BitWriter
 from ..io.frame_header import FrameHeader
@@ -90,19 +90,20 @@ def _parse(streams, **frame_kw):
         raise JXLError("batch decode: empty stream list")
     states, fhs = [], []
     for data in streams:
-        r = BitReader(data)
-        meta = parse_codestream_header(r)
-        if not meta.m.xyb_encoded or meta.m.orientation != 1 \
-                or meta.m.bit_depth.bits_per_sample > 8:
-            raise JXLError("batch decode: stream needs host stages")
-        if meta.m.num_extra_channels:
-            raise JXLError("batch decode: extra channels")
-        if meta.m.color_encoding.want_icc:
-            raise JXLError("batch decode: CMS output stage")
-        if meta.m.have_preview:
-            _skip_or_decode_preview(r, meta)
-        fh = FrameHeader(meta)
-        fh.read(r)
+        with span("jxl.headers"):
+            r = BitReader(data)
+            meta = parse_codestream_header(r)
+            if not meta.m.xyb_encoded or meta.m.orientation != 1 \
+                    or meta.m.bit_depth.bits_per_sample > 8:
+                raise JXLError("batch decode: stream needs host stages")
+            if meta.m.num_extra_channels:
+                raise JXLError("batch decode: extra channels")
+            if meta.m.color_encoding.want_icc:
+                raise JXLError("batch decode: CMS output stage")
+            if meta.m.have_preview:
+                _skip_or_decode_preview(r, meta)
+            fh = FrameHeader(meta)
+            fh.read(r)
         cap = {}
 
         def capture(state, cap=cap):
@@ -181,34 +182,35 @@ def prepare_batch(streams, num_threads: int = 0):
     prepare_tpu_batch. Raises JXLError when the streams are not one
     homogeneous all-DCT8 batch; callers decode such streams one by one."""
     states, fhs = _parse(streams, num_threads=num_threads)
-    fd0 = states[0].fd
-    dm0 = dequant_tables(states[0])
-    for st, fh in zip(states, fhs):
-        fd = st.fd
-        if (fd.ysize, fd.xsize) != (fd0.ysize, fd0.xsize):
-            raise JXLError("batch decode: mixed geometry")
-        if np.any(st.strategy[st.is_origin] != acs.DCT):
-            raise JXLError("batch decode: non-DCT8 strategies")
-        if getattr(st, "qimg", None) is None:
-            if not st.qblocks:
-                raise JXLError("batch decode: no coefficients")
-            # single-group streams skip the bulk entropy path: assemble
-            # the dense image from the per-block dict
-            nby_, nbx_ = fd.ysize_blocks, fd.xsize_blocks
-            plane5 = np.zeros((3, nby_, 8, nbx_, 8), dtype=np.int32)
-            keys = np.array(list(st.qblocks.keys()), dtype=np.int64)
-            vals = np.stack([np.asarray(v) for v in
-                             st.qblocks.values()]).astype(np.int32)
-            plane5[:, keys[:, 0], :, keys[:, 1], :] = \
-                vals.reshape(-1, 3, 8, 8)
-            st.qimg = plane5.reshape(3, nby_ * 8, nbx_ * 8)
-        _check_render_scope(st, fh, states[0], fhs[0], dm0)
-    qimg = np.stack([st.qimg for st in states])
-    if np.abs(qimg).max() < (1 << 15):
-        # quantized AC coefficients fit int16 on real streams: halves
-        # the dominant upload (the kernel widens in-register)
-        qimg = qimg.astype(np.int16)
-    config, rest = _stage(states, fhs, dm0)
+    with span("jxl.stage"):
+        fd0 = states[0].fd
+        dm0 = dequant_tables(states[0])
+        for st, fh in zip(states, fhs):
+            fd = st.fd
+            if (fd.ysize, fd.xsize) != (fd0.ysize, fd0.xsize):
+                raise JXLError("batch decode: mixed geometry")
+            if np.any(st.strategy[st.is_origin] != acs.DCT):
+                raise JXLError("batch decode: non-DCT8 strategies")
+            if getattr(st, "qimg", None) is None:
+                if not st.qblocks:
+                    raise JXLError("batch decode: no coefficients")
+                # single-group streams skip the bulk entropy path: assemble
+                # the dense image from the per-block dict
+                nby_, nbx_ = fd.ysize_blocks, fd.xsize_blocks
+                plane5 = np.zeros((3, nby_, 8, nbx_, 8), dtype=np.int32)
+                keys = np.array(list(st.qblocks.keys()), dtype=np.int64)
+                vals = np.stack([np.asarray(v) for v in
+                                 st.qblocks.values()]).astype(np.int32)
+                plane5[:, keys[:, 0], :, keys[:, 1], :] = \
+                    vals.reshape(-1, 3, 8, 8)
+                st.qimg = plane5.reshape(3, nby_ * 8, nbx_ * 8)
+            _check_render_scope(st, fh, states[0], fhs[0], dm0)
+        qimg = np.stack([st.qimg for st in states])
+        if np.abs(qimg).max() < (1 << 15):
+            # quantized AC coefficients fit int16 on real streams: halves
+            # the dominant upload (the kernel widens in-register)
+            qimg = qimg.astype(np.int16)
+        config, rest = _stage(states, fhs, dm0)
     return config, (qimg, *rest)
 
 
@@ -232,14 +234,17 @@ def prepare_batch_entropy(streams):
         datas.append(frame_data)
         raws.append(per_pass[0])
     try:
-        plan = ans_tpu.build_plan(states, datas, raws, shared_tables=False)
-        lane_plan = ans_kernel.build_lane_plan(plan)
+        with span("jxl.entropy.plan"):
+            plan = ans_tpu.build_plan(states, datas, raws,
+                                      shared_tables=False)
+            lane_plan = ans_kernel.build_lane_plan(plan)
     except ans_tpu.AnsTpuUnsupported as e:
         raise JXLError(f"batch decode: device entropy unsupported: {e}")
-    dm0 = dequant_tables(states[0])
-    for st, fh in zip(states, fhs):
-        _check_render_scope(st, fh, states[0], fhs[0], dm0)
-    config, render_args = _stage(states, fhs, dm0)
+    with span("jxl.stage"):
+        dm0 = dequant_tables(states[0])
+        for st, fh in zip(states, fhs):
+            _check_render_scope(st, fh, states[0], fhs[0], dm0)
+        config, render_args = _stage(states, fhs, dm0)
     return config, render_args, lane_plan
 
 
@@ -339,6 +344,7 @@ def _render(config: BatchConfig, args, device) -> list:
     return _crop(config, u8)
 
 
+@spanned("jxl.decode_batch")
 def decode_batch(streams, device="cuda", num_threads: int = 0) -> list:
     """Decode N same-geometry all-DCT8 streams with one batched render on
     `device`. Returns uint8 (H, W, 3) images in input order. Raises
@@ -348,6 +354,7 @@ def decode_batch(streams, device="cuda", num_threads: int = 0) -> list:
     return _render(config, args, device)
 
 
+@spanned("jxl.decode_batch_sharded")
 def decode_batch_sharded(streams, mesh=None, num_threads: int = 0) -> list:
     """The data-parallel serving decode (the port of
     decode_tpu_batch_sharded): one prepare_batch of `streams` on the host,
@@ -378,6 +385,7 @@ def decode_batch_sharded(streams, mesh=None, num_threads: int = 0) -> list:
     return out
 
 
+@spanned("jxl.decode_pipelined")
 def decode_pipelined(streams, device="cuda", batch_size: int = 16,
                      num_threads: int = 0) -> list:
     """Pipelined serving decode: the caller's thread entropy-decodes
@@ -469,6 +477,7 @@ def _not_ok(ok) -> None:
             + (" ..." if bad.size > 16 else ""))
 
 
+@spanned("jxl.decode_batch_entropy")
 def decode_batch_entropy(streams, device="cuda",
                          stages: dict | None = None):
     """Batch decode with the AC entropy decode on `device` (the port of
@@ -499,7 +508,8 @@ def decode_batch_entropy(streams, device="cuda",
         config, render_args, lane_plan = prepare_batch_entropy(streams)
     except JXLError as e:
         return _host_fallback(streams, dev, str(e))
-    lp = ans_kernel.program_plan(lane_plan)
+    with span("jxl.entropy.plan"):
+        lp = ans_kernel.program_plan(lane_plan)
     if lap is not None:
         lap("host parse + plan + lane plan")
     u8, ok = programs.run(
@@ -667,6 +677,7 @@ def _dense_qimg(state) -> None:
             np.asarray(blk).reshape(3, cy * 8, cx * 8)
 
 
+@spanned("jxl.stage")
 def stage_image(state, fh, direct_u8: bool):
     """The host-side inputs of one XYB frame's device render: (args,
     kwargs) of pipeline.decode_render_image, numpy arrays in the types

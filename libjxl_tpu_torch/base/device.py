@@ -1,4 +1,4 @@
-"""Device choice, precision policy and kernel launch counters.
+"""Device choice, precision policy, kernel launch counters and spans.
 
 Device: every entry point takes a device, "cuda" unless the caller asks
 for the CPU, and resolves it here. Asking for CUDA without a card raises;
@@ -17,11 +17,34 @@ show that its main path went through the kernels. While a thread
 captures a CUDA graph (ops/programs.py) its wrappers' launches are
 recorded instead of counted (recording_launches), and each replay of
 the graph adds what its capture recorded.
+
+Spans: span(name) marks a stretch of host work as a torch.profiler range
+(record_function) while a torch profiler records, and is one shared null
+context otherwise, so tracing is on exactly when a profiler is: the
+benchmark's traced run or an operator's own torch.profiler. The ranges
+land in the profiler's timeline beside the kernels and copies, on the
+device trace's clock. Spans nest on the calling thread: the span that
+caused a span is the one around it, and each entry call's root span
+(jxl.decode, jxl.decode_batch_entropy, jxl.decode_batch,
+jxl.decode_batch_sharded, jxl.decode_pipelined) marks one request. The
+port's spans, every name starting with "jxl.":
+
+- jxl.headers: the codestream, frame header and TOC reads;
+- jxl.frame.init: a VarDCT frame's decoder state made (vardct/frame.py);
+- jxl.frame.dc, jxl.frame.ac_global, jxl.frame.ac: a frame's DC (global
+  and groups), AC global and AC group sections (api/frame.py);
+- jxl.entropy.plan: the device-entropy lane plan (api/tpu_codec.py);
+- jxl.stage: a batch's or a frame's render inputs made on the host;
+- jxl.program.eager, .capture, .load, .replay, .readback: the program
+  layer (ops/programs.py).
+
+No span is inside a captured program body, and none synchronizes.
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import subprocess
 import threading
 
@@ -104,6 +127,29 @@ def recording_launches():
         yield record
     finally:
         _RECORDING.launches = None
+
+
+_NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context that marks its block as the profiler range `name` while a
+    torch profiler records, and does nothing otherwise (module
+    docstring)."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(name)
+    return _NO_SPAN
+
+
+def spanned(name: str):
+    """Decorator: each call of the function inside span(name)."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return call
+    return wrap
 
 
 def card_line() -> str:

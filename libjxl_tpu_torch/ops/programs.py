@@ -45,6 +45,14 @@ The cache holds CACHE_SIZE programs a device and drops the least recently
 used first, with its graph and its memory pool; it drops them also while
 the device memory its captured programs hold (Program.held: input slots
 and graph pool) passes 1 / HELD_SHARE of the card's.
+
+While a torch profiler records, a call marks its host steps as spans
+(base/device.span): jxl.program.eager (an eager call, the CPU's and a
+marked call included), jxl.program.capture (the capture, with the
+cache's trim after it), jxl.program.load (the copies into the input
+slots), jxl.program.replay (the graph's launch and its launch counts) and
+jxl.program.readback (the wait for the program's kernels and the copy of
+its outputs to the host). Each is on the host, outside the captured body.
 """
 
 from __future__ import annotations
@@ -56,7 +64,7 @@ import time
 import numpy as np
 import torch
 
-from ..base.device import launch_counter, recording_launches
+from ..base.device import launch_counter, recording_launches, span
 
 # programs kept a device: the most one caller cycles through, an effort-7
 # encode's 18 (16 tile sizes, the refinement's trial and its diffmap),
@@ -167,7 +175,8 @@ def _deliver(out, readback: bool, clone: bool):
     leaves, spec = flatten(out)
     if readback:
         # a copy also where the program's own tensors are on the host
-        leaves = [t.to("cpu", copy=clone).numpy() for t in leaves]
+        with span("jxl.program.readback"):
+            leaves = [t.to("cpu", copy=clone).numpy() for t in leaves]
     elif clone:
         leaves = [t.clone() for t in leaves]
     return unflatten(spec, leaves)
@@ -175,10 +184,11 @@ def _deliver(out, readback: bool, clone: bool):
 
 def _eager(fn, spec, inputs, device, readback: bool, **extra):
     """fn on `inputs` put on `device`, run as it stands (no graph)."""
-    args, kwargs = unflatten(spec, [_on(x, device) for x in inputs])
-    with torch.inference_mode():
-        out = fn(*args, **kwargs, **extra)
-    return _deliver(out, readback, clone=False)
+    with span("jxl.program.eager"):
+        args, kwargs = unflatten(spec, [_on(x, device) for x in inputs])
+        with torch.inference_mode():
+            out = fn(*args, **kwargs, **extra)
+        return _deliver(out, readback, clone=False)
 
 
 def _side_stream(device: torch.device) -> torch.cuda.Stream:
@@ -229,9 +239,10 @@ class Program:
                 self.calls += 1
                 return out
             if mode == "capture":
-                self._capture(inputs)
-                if self.held:
-                    _trim(self.device, keep=self)
+                with span("jxl.program.capture"):
+                    self._capture(inputs)
+                    if self.held:
+                        _trim(self.device, keep=self)
             else:
                 self._load(inputs)
             self._replay()
@@ -239,7 +250,7 @@ class Program:
             return _deliver(self.out, readback, clone)
 
     def _load(self, inputs) -> None:
-        with torch.no_grad():
+        with span("jxl.program.load"), torch.no_grad():
             for slot, x in zip(self.slots, inputs):
                 if isinstance(x, torch.Tensor) \
                         and x.data_ptr() == slot.data_ptr() \
@@ -290,9 +301,10 @@ class Program:
             for t, x in zip(self.slots, inputs) if t is not x)
 
     def _replay(self) -> None:
-        self.graph.replay()
-        for name, n in self.launches.items():
-            launch_counter(name).add(n)
+        with span("jxl.program.replay"):
+            self.graph.replay()
+            for name, n in self.launches.items():
+                launch_counter(name).add(n)
 
 
 def cached(name: str, key, spec, device: torch.device, fn) -> Program:

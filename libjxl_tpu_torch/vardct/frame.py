@@ -22,6 +22,7 @@ import functools
 
 import numpy as np
 
+from ..base.device import span
 from ..base.status import JXLError
 from ..io.bits import BitReader, BitWriter
 from ..io.fields import (
@@ -1106,37 +1107,38 @@ def decode_vardct_frame(r: BitReader, fh: FrameHeader,
     from ..api.frame import ModularFrameState, modular_ac_stream_id
     from ..api.frame import modular_dc_stream_id
 
-    fd = fh.frame_dimensions()
-    state = VarDCTState(fh, fd)
-    state.want_qimg = want_qimg
-    state.num_threads = num_threads
-    mstate = ModularFrameState()
-    subsampled = False
-    from ..io.frame_header import CT_YCBCR as _CT_YCBCR_D
+    with span("jxl.frame.init"):
+        fd = fh.frame_dimensions()
+        state = VarDCTState(fh, fd)
+        state.want_qimg = want_qimg
+        state.num_threads = num_threads
+        mstate = ModularFrameState()
+        subsampled = False
+        from ..io.frame_header import CT_YCBCR as _CT_YCBCR_D
 
-    if fh.color_transform == _CT_YCBCR_D \
-            and not fh.chroma_subsampling.is_444():
-        from .subsampled import channel_block_grid, _shifts
+        if fh.color_transform == _CT_YCBCR_D \
+                and not fh.chroma_subsampling.is_444():
+            from .subsampled import channel_block_grid, _shifts
 
-        subsampled = True
-        hs_, vs_ = _shifts(fh)
-        grids = channel_block_grid(fd, hs_, vs_)
-        state.dc_sub = [np.zeros(g, dtype=np.float64) for g in grids]
-        state.qblocks_sub = [dict() for _ in range(3)]
-    if fh.flags & FLAG_USE_DC_FRAME:
-        # the consuming frame at dc_level L reads the 1:8 frame stored
-        # at level L+1 (frame_header.h:348 pyramid indexing)
-        slot = fh.dc_level + 1
-        if not dc_frames or slot >= len(dc_frames) \
-                or dc_frames[slot] is None:
-            raise JXLError("kUseDcFrame set but no DC frame decoded")
-        dcf = np.asarray(dc_frames[slot], dtype=np.float64)
-        if dcf.shape[1] < fd.ysize_blocks \
-                or dcf.shape[2] < fd.xsize_blocks:
-            raise JXLError("DC frame smaller than the frame's block "
-                           "grid")
-        state.dc[:, :fd.ysize_blocks, :fd.xsize_blocks] = \
-            dcf[:, :fd.ysize_blocks, :fd.xsize_blocks]
+            subsampled = True
+            hs_, vs_ = _shifts(fh)
+            grids = channel_block_grid(fd, hs_, vs_)
+            state.dc_sub = [np.zeros(g, dtype=np.float64) for g in grids]
+            state.qblocks_sub = [dict() for _ in range(3)]
+        if fh.flags & FLAG_USE_DC_FRAME:
+            # the consuming frame at dc_level L reads the 1:8 frame stored
+            # at level L+1 (frame_header.h:348 pyramid indexing)
+            slot = fh.dc_level + 1
+            if not dc_frames or slot >= len(dc_frames) \
+                    or dc_frames[slot] is None:
+                raise JXLError("kUseDcFrame set but no DC frame decoded")
+            dcf = np.asarray(dc_frames[slot], dtype=np.float64)
+            if dcf.shape[1] < fd.ysize_blocks \
+                    or dcf.shape[2] < fd.xsize_blocks:
+                raise JXLError("DC frame smaller than the frame's block "
+                               "grid")
+            state.dc[:, :fd.ysize_blocks, :fd.xsize_blocks] = \
+                dcf[:, :fd.ysize_blocks, :fd.xsize_blocks]
 
     def dc_global(sr):
         # image features, in reference order: patches, splines, noise
