@@ -218,7 +218,10 @@ def prepare_batch_entropy(streams):
     """The host half of the device-entropy batch decode (the port of
     prepare_tpu_batch_entropy): headers, DC and AC metadata are decoded
     here, and the AC groups' raw rANS sections are laid out for the
-    device (ops/ans_kernel.build_lane_plan).
+    device straight from the sections (ops/ans_kernel.
+    lane_plan_from_sections, the card's route; the oracle route,
+    ops/ans_tpu.build_plan then ans_kernel.build_lane_plan, builds the same
+    LanePlan with per-chain metadata for the NumPy simulator).
 
     Returns (config, render_args, lane_plan); render_args are
     prepare_batch's arrays without qimg: (qf, dc, ytox, ytob, igs, isp,
@@ -235,9 +238,8 @@ def prepare_batch_entropy(streams):
         raws.append(per_pass[0])
     try:
         with span("jxl.entropy.plan"):
-            plan = ans_tpu.build_plan(states, datas, raws,
-                                      shared_tables=False)
-            lane_plan = ans_kernel.build_lane_plan(plan)
+            lane_plan = ans_kernel.lane_plan_from_sections(states, datas,
+                                                           raws)
     except ans_tpu.AnsTpuUnsupported as e:
         raise JXLError(f"batch decode: device entropy unsupported: {e}")
     with span("jxl.stage"):

@@ -1,10 +1,15 @@
 """Device rANS decode of DCT8 AC groups and the placement of its tape (the
 port of libjxl_tpu/ops/ans_kernel.py).
 
-build_lane_plan lays a DecodePlan (ops/ans_tpu.build_plan, the NumPy
-host layer) out flat, one lane per AC group, for one thread
-per lane: the counterpart of build_serve_plan without the TPU's (8, 128)
-sublane packing. ans_decode_plain is the plain torch twin of the CUDA
+A LanePlan lays one batch's AC groups out flat, one lane per group, for
+one thread per lane: the counterpart of build_serve_plan without the
+TPU's (8, 128) sublane packing. Two routes build it. The card's route,
+lane_plan_from_sections (tpu_codec.prepare_batch_entropy), builds it
+straight from the frames' AC sections. The oracle route, build_lane_plan,
+lays out a DecodePlan (ops/ans_tpu.build_plan, the NumPy host layer, or
+the JAX package's), whose per-chain metadata the NumPy simulator and
+place_numpy read; the tests hold the two routes' plans equal.
+ans_decode_plain is the plain torch twin of the CUDA
 kernel ops/csrc/ans_decode.cu (TPU kernel K3, _make_kernel): a lockstep
 decode over the lanes, one Python iteration per step. place is phase 2
 (_placer_fn / place_device): the tape becomes qimg coefficient planes
@@ -26,7 +31,8 @@ import torch
 from ..vardct import ac_strategy as acs
 from .ans_tpu import (ANS_LOG, ANS_SIGNATURE, K_FREQ_CTX, K_NONZ_CTX, MARKER,
                       NONZERO_BUCKETS, TAPE_VAL, ZD_COUNT, AnsTpuUnsupported,
-                      _bctx_lut_np)
+                      _bctx_lut_np, check_context_map, check_streams,
+                      pack_tables, per_image_alias)
 from .build import CTA_LANES
 
 MAX_LANES = 1024     # the JAX plan's lane grid, 8 x 128
@@ -176,11 +182,12 @@ def _kz_table() -> np.ndarray:
     return kz
 
 
-def _dct8_orders(plan, si):
-    """(3, 64) inverse order: raster pos -> chain step (0 = DC, unset)."""
+def _dct8_orders(orders):
+    """(3, 64) inverse order of one image's DCT8 coefficient orders (its
+    pass's dict): raster pos -> chain step (0 = DC, unset)."""
     inv = np.zeros((3, 64), np.int64)
     for ci in range(3):
-        order = plan.orders[si].get((0, ci))
+        order = orders.get((0, ci))
         if order is None:
             order = acs.natural_coeff_order(0)
         order = np.asarray(order, np.int64)
@@ -189,14 +196,12 @@ def _dct8_orders(plan, si):
     return inv
 
 
-def build_lane_plan(plan) -> LanePlan:
-    """Lay a DecodePlan (built with shared_tables=False) out per lane.
-
-    Raises AnsTpuUnsupported outside the kernel's scope, with the messages
-    of the JAX package's build_serve_plan, and for more than 1024 lanes
-    (16 frames of 2048 x 2048)."""
-    states = plan.states
-    if plan.max_bits_per_sym > 32:
+def check_lane_scope(states, max_bits_per_sym: int, n_lanes: int) -> None:
+    """The kernel's scope beyond the streams' (ans_tpu.check_streams):
+    raises AnsTpuUnsupported with the first failure, with the messages of
+    the JAX package's build_serve_plan, and for more than 1024 lanes (16
+    frames of 2048 x 2048)."""
+    if max_bits_per_sym > 32:
         raise AnsTpuUnsupported("symbol needs > 32 bits")
     for st in states:
         if not (st.strategy == 0).all():
@@ -213,10 +218,49 @@ def build_lane_plan(plan) -> LanePlan:
     if any(s.fd.xsize_blocks != fd.xsize_blocks
            or s.fd.ysize_blocks != fd.ysize_blocks for s in states):
         raise AnsTpuUnsupported("mixed geometry batch")
-    L = plan.n_lanes
-    if L > MAX_LANES:
+    if n_lanes > MAX_LANES:
         raise AnsTpuUnsupported(f"more than {MAX_LANES} lanes")
 
+
+def _cluster_luts(states):
+    """(nzclu, zdclu): each image's cluster of (j, nzeros bucket) and of
+    (j, zero-density context), the block context and num_ctxs folded in
+    per j."""
+    B = len(states)
+    nzclu = np.zeros((B, NZ_WIDTH), np.uint8)
+    zdclu = np.zeros((B, ZD_WIDTH), np.uint8)
+    for si, st in enumerate(states):
+        cm = np.asarray(st.ac_context_map[0], np.int64)
+        num_ctxs = st.block_ctx_map.num_ctxs
+        bc = _bctx_lut_np(st)[0][:, 0, 0].astype(np.int64)[:, None]
+        nzclu[si] = cm[np.arange(NONZERO_BUCKETS) * num_ctxs + bc].reshape(-1)
+        zdclu[si] = cm[num_ctxs * NONZERO_BUCKETS + ZD_COUNT * bc
+                       + np.arange(ZD_COUNT)].reshape(-1)
+    return nzclu, zdclu
+
+
+def _geometry(states) -> dict:
+    fd = states[0].fd
+    return dict(B=len(states), gy=fd.ysize_groups, gx=fd.xsize_groups,
+                H=fd.ysize_blocks * 8, W=fd.xsize_blocks * 8)
+
+
+def _alias(words) -> np.ndarray:
+    """Per-image i32 (rows, 128) alias tables as u32 [B, rows * 128]."""
+    return np.stack(words).view(np.uint32).reshape(len(words), -1)
+
+
+def build_lane_plan(plan) -> LanePlan:
+    """Lay a DecodePlan (built with shared_tables=False) out per lane.
+
+    The oracle route, fed by ans_tpu.build_plan (the port's or the JAX
+    package's), whose chain metadata simulate and place_numpy read; the
+    card's route builds the same LanePlan without that metadata
+    (lane_plan_from_sections). Raises AnsTpuUnsupported outside the
+    kernel's scope (check_lane_scope)."""
+    states = plan.states
+    check_lane_scope(states, plan.max_bits_per_sym, plan.n_lanes)
+    L = plan.n_lanes
     nhw = plan.stream_nhw[:L].astype(np.int64)
     ends = np.cumsum(nhw + SLACK_HW)
     lane_off = ends - nhw - SLACK_HW
@@ -227,32 +271,68 @@ def build_lane_plan(plan) -> LanePlan:
     xsize = np.array([s.fd.xsize_blocks for s in states], np.int64)
     bw = np.minimum(xsize[lane_img] - plan.lane_gx[:L] * GROUP_BLOCKS,
                     GROUP_BLOCKS).astype(np.int32)
-
-    B = len(states)
-    nzclu = np.zeros((B, NZ_WIDTH), np.uint8)
-    zdclu = np.zeros((B, ZD_WIDTH), np.uint8)
-    for si, st in enumerate(states):
-        # cluster LUTs with the block context and num_ctxs folded in per j
-        cm = np.asarray(st.ac_context_map[0], np.int64)
-        num_ctxs = st.block_ctx_map.num_ctxs
-        bc = _bctx_lut_np(st)[0][:, 0, 0].astype(np.int64)[:, None]
-        nzclu[si] = cm[np.arange(NONZERO_BUCKETS) * num_ctxs + bc].reshape(-1)
-        zdclu[si] = cm[num_ctxs * NONZERO_BUCKETS + ZD_COUNT * bc
-                       + np.arange(ZD_COUNT)].reshape(-1)
-
-    def alias(words):
-        return np.stack(words).view(np.uint32).reshape(B, -1)
-
+    nzclu, zdclu = _cluster_luts(states)
     return LanePlan(
         flat_hw=flat, lane_off=lane_off,
         n_chains=plan.n_chains[:L].astype(np.int32), bw=bw,
-        lane_img=lane_img, a1=alias(plan.alias_w1_list),
-        a2=alias(plan.alias_w2_list), nzclu=nzclu, zdclu=zdclu,
+        lane_img=lane_img, a1=_alias(plan.alias_w1_list),
+        a2=_alias(plan.alias_w2_list), nzclu=nzclu, zdclu=zdclu,
         kz=_kz_table(),
-        inv_order=np.stack([_dct8_orders(plan, si) for si in range(B)]),
+        inv_order=np.stack([_dct8_orders(o) for o in plan.orders]),
         las=int(plan.las), alias_rows=int(plan.alias_rows),
-        t_alloc=int(plan.max_steps), B=B, gy=fd.ysize_groups,
-        gx=fd.xsize_groups, H=fd.ysize_blocks * 8, W=fd.xsize_blocks * 8)
+        t_alloc=int(plan.max_steps), **_geometry(states))
+
+
+def lane_plan_from_sections(states, datas, raw_list) -> LanePlan:
+    """The card's route: the LanePlan that build_lane_plan(ans_tpu.
+    build_plan(states, datas, raw_list, shared_tables=False)) gives, built
+    straight from each image's AC group sections, without the DecodePlan's
+    per-chain metadata, which the kernel derives itself.
+
+    The scope admits only all-DCT8 frames of whole 256 x 256 groups, so
+    every chain takes at most 64 steps (its nzeros token and 63
+    coefficients) and the tape's structural bound is 64 x the most chains
+    of a lane. Raises AnsTpuUnsupported with the first failure of
+    build_plan's checks and then build_lane_plan's, in their order."""
+    check_streams(states)
+    packed, las, max_nbits = pack_tables(states)
+    w1l, w2l, alias_rows = per_image_alias(packed)
+    check_context_map(states[0].ac_context_map[0])
+    groups = [st.fd.num_groups for st in states]
+    check_lane_scope(states, 16 + max_nbits, sum(groups))
+
+    # each lane's halfwords (an odd section takes a zero byte), then
+    # SLACK_HW zero halfwords
+    buf = bytearray()
+    starts, n_chains, bws = [], [], []
+    slack = bytes(2 * SLACK_HW + 1)
+    for st, data, (offs, sizes) in zip(states, datas, raw_list):
+        fd = st.fd
+        gdim = fd.group_dim // 8
+        view = memoryview(data)
+        for g in range(fd.num_groups):
+            gx, gy = g % fd.xsize_groups, g // fd.xsize_groups
+            sec = view[offs[g]:offs[g] + sizes[g]]
+            starts.append(len(buf) // 2)
+            buf += sec
+            buf += slack[:2 * SLACK_HW + len(sec) % 2]
+            bh = min(fd.ysize_blocks - gy * gdim, gdim)
+            bw = min(fd.xsize_blocks - gx * gdim, gdim)
+            n_chains.append(3 * bh * bw)
+            bws.append(bw)
+    flat = np.frombuffer(buf, "<u2").astype(np.uint16, copy=False)
+    lane_img = np.repeat(np.arange(len(states), dtype=np.int32), groups)
+    n_chains = np.array(n_chains, np.int32)
+    nzclu, zdclu = _cluster_luts(states)
+    return LanePlan(
+        flat_hw=flat, lane_off=np.array(starts, np.int64),
+        n_chains=n_chains, bw=np.array(bws, np.int32),
+        lane_img=lane_img, a1=_alias(w1l), a2=_alias(w2l), nzclu=nzclu,
+        zdclu=zdclu, kz=_kz_table(),
+        inv_order=np.stack([_dct8_orders(st.orders[0] if st.orders else {})
+                            for st in states]),
+        las=int(las), alias_rows=int(alias_rows),
+        t_alloc=64 * int(n_chains.max()), **_geometry(states))
 
 
 def lane_plan_from_serve_plan(sp) -> LanePlan:

@@ -101,34 +101,40 @@ def _pack_alias_tables(code, context_map):
     if n * size > 2048:
         raise AnsTpuUnsupported(
             f"alias table too large for kernel ({n}x{size})")
-    w1 = np.zeros(n * size, dtype=np.int64)
-    w2 = np.zeros(n * size, dtype=np.int64)
     max_nbits = 0
-    for i, t in enumerate(tables):
-        cutoff = np.asarray(t.cutoff, np.int64)
-        right = np.asarray(t.right_value, np.int64)
-        freq0 = np.asarray(t.freq0, np.int64)
-        off1 = np.asarray(t.offsets1, np.int64)
-        freq1 = np.asarray(t.freq1, np.int64)
-        if right.max(initial=0) >= 64:
-            raise AnsTpuUnsupported("alphabet >= 64")
-        cfg = code.uint_config[i]
-        se, msb, lsb = (cfg.split_exponent, cfg.msb_in_token,
-                        cfg.lsb_in_token)
-        if se > 7 or msb > 3 or lsb > 3:
-            raise AnsTpuUnsupported("hybrid-uint config out of range")
-        # exact max raw-bit count for any token this table can emit
+    w1 = w2 = np.zeros(0, np.int64)
+    if n:
+        def field(name):                     # (n, size), table by table
+            return np.stack([np.asarray(getattr(t, name))
+                             for t in tables]).astype(np.int64)
+
+        cutoff, right, freq0, off1, freq1 = (
+            field(f) for f in ("cutoff", "right_value", "freq0",
+                               "offsets1", "freq1"))
+        cfgs = code.uint_config[:n]
+        se, msb, lsb = (np.array([getattr(c, a) for c in cfgs], np.int64)
+                        for a in ("split_exponent", "msb_in_token",
+                                  "lsb_in_token"))
+        # the first table out of scope raises its first failure
+        big = right.max(axis=1) >= 64
+        wide = (se > 7) | (msb > 3) | (lsb > 3)
+        bad = big | wide | (las < 4)
+        if bad.any():
+            i = int(np.argmax(bad))
+            raise AnsTpuUnsupported(
+                "alphabet >= 64" if big[i] else
+                "hybrid-uint config out of range" if wide[i] else
+                "log_alpha_size < 4 (cutoff > 255)")
+        # exact max raw-bit count for any token a table can emit: the
+        # count grows with the token, so each table's largest decides
         split = 1 << se
-        for tok in set(right.tolist()) | set(range(min(size, 64))):
-            if tok >= split and tok < 64:
-                nb = se - (msb + lsb) + ((tok - split) >> (msb + lsb))
-                max_nbits = max(max_nbits, nb)
-        if las < 4:
-            raise AnsTpuUnsupported("log_alpha_size < 4 (cutoff > 255)")
-        base = i * size
-        w1[base:base + size] = (cutoff | (right << 8) | (freq0 << 14)
-                                | (se << 27) | (msb << 30))
-        w2[base:base + size] = freq1 | (off1 << 13) | (lsb << 25)
+        ml = msb + lsb
+        tok = np.maximum(right.max(axis=1), min(size, 64) - 1)
+        nb = se - ml + ((tok - split) >> ml)
+        max_nbits = int(nb[tok >= split].max(initial=0))
+        w1 = (cutoff | (right << 8) | (freq0 << 14) | (se << 27)[:, None]
+              | (msb << 30)[:, None]).reshape(-1)
+        w2 = (freq1 | (off1 << 13) | (lsb << 25)[:, None]).reshape(-1)
     pad = -(n * size) % 128
     w1 = np.concatenate([w1, np.zeros(pad, np.int64)])
     w2 = np.concatenate([w2, np.zeros(pad, np.int64)])
@@ -136,13 +142,19 @@ def _pack_alias_tables(code, context_map):
             w2.astype(np.uint32), las, max_nbits)
 
 
-def _pack_context_map(cmap):
-    """Context map u8 entries packed 4-per-u32, (rows, 128)."""
+def check_context_map(cmap):
+    """cmap as u8 entries; raises outside the kernel's scope."""
     cm = np.asarray(cmap, np.uint8)
     if len(cm) > 8192:
         raise AnsTpuUnsupported(f"context map too large ({len(cm)})")
     if cm.max(initial=0) >= 64:
         raise AnsTpuUnsupported("cluster id >= 64")
+    return cm
+
+
+def _pack_context_map(cmap):
+    """Context map u8 entries packed 4-per-u32, (rows, 128)."""
+    cm = check_context_map(cmap)
     n_words = (len(cm) + 3) // 4
     rows = max(1, -(-n_words // 128))
     buf = np.zeros(rows * 128 * 4, dtype=np.uint8)
@@ -150,24 +162,15 @@ def _pack_context_map(cmap):
     return buf.view("<u4").astype(np.uint32).reshape(rows, 128), rows
 
 
-def build_plan(states, datas, raw_list, shared_tables=True):
-    """states: VarDCTState list (headers+DC+meta decoded, AC captured raw);
-    datas: frame section bytes per state; raw_list: (offs, sizes) of the
-    single pass's AC group sections per state. Raises AnsTpuUnsupported
-    for streams outside kernel scope.
-
-    shared_tables=True requires identical entropy tables across the
-    batch (single packed table set); False keeps per-image table sets
-    (plan.alias_w1_list/... + per-lane bases) — the Pallas kernel packs
-    those per sublane (ans_kernel.build_serve_plan)."""
-    from ..vardct import ac_strategy as acs
-
+def check_streams(states):
+    """The batch's AC streams against the kernel's scope (single pass,
+    rANS, one histogram set, no DC-conditioned block contexts); raises
+    AnsTpuUnsupported with the first failure, in build_plan's order."""
     st0 = states[0]
     code = st0.ac_code[0]
     if code.lz77.enabled or code.use_prefix_code:
         raise AnsTpuUnsupported("lz77/prefix AC stream")
-    bcm = st0.block_ctx_map
-    if bcm.num_dc_ctxs != 1:
+    if st0.block_ctx_map.num_dc_ctxs != 1:
         raise AnsTpuUnsupported("dc-conditioned block contexts")
     for st in states:
         if st.num_histograms != 1:
@@ -180,13 +183,57 @@ def build_plan(states, datas, raw_list, shared_tables=True):
         if c.lz77.enabled or c.use_prefix_code:
             raise AnsTpuUnsupported("lz77/prefix AC stream")
 
-    plan = DecodePlan()
+
+def pack_tables(states):
+    """Each image's alias tables packed (_pack_alias_tables). Returns
+    (packed, las, max_nbits): the per-image (w1, w2, las, max_nbits), the
+    batch's log alpha size and its largest raw-bit count of a token."""
     packed = [_pack_alias_tables(st.ac_code[0], st.ac_context_map[0])
               for st in states]
     las = packed[0][2]
-    max_nbits = max(p[3] for p in packed)
     if any(p[2] != las for p in packed):
         raise AnsTpuUnsupported("mixed log_alpha_size in batch")
+    return packed, las, max(p[3] for p in packed)
+
+
+def per_image_alias(packed):
+    """pack_tables' words as i32 (rows, 128) tables, every image's padded
+    to the batch's largest row count, so that per-image row strides
+    match. Returns (w1 list, w2 list, rows)."""
+    max_rows = max(len(p[0]) // 128 for p in packed)
+    w1l, w2l = [], []
+    for p in packed:
+        w1 = p[0].view(np.int32).reshape(-1, 128)
+        w2 = p[1].view(np.int32).reshape(-1, 128)
+        if w1.shape[0] < max_rows:
+            pad = np.zeros((max_rows - w1.shape[0], 128), np.int32)
+            w1 = np.concatenate([w1, pad])
+            w2 = np.concatenate([w2, pad])
+        w1l.append(w1)
+        w2l.append(w2)
+    return w1l, w2l, max_rows
+
+
+def build_plan(states, datas, raw_list, shared_tables=True):
+    """states: VarDCTState list (headers+DC+meta decoded, AC captured raw);
+    datas: frame section bytes per state; raw_list: (offs, sizes) of the
+    single pass's AC group sections per state. Raises AnsTpuUnsupported
+    for streams outside kernel scope.
+
+    shared_tables=True requires identical entropy tables across the
+    batch (single packed table set); False keeps per-image table sets
+    (plan.alias_w1_list/... + per-lane bases) — the Pallas kernel packs
+    those per sublane (ans_kernel.build_serve_plan).
+
+    This is the oracle route: the DecodePlan carries each chain's
+    metadata for simulate and place_numpy, and ans_kernel.build_lane_plan
+    lays it out for the kernel. The card's route (tpu_codec.
+    prepare_batch_entropy) builds its LanePlan straight from the sections
+    (ans_kernel.lane_plan_from_sections), sharing check_streams,
+    pack_tables, per_image_alias and check_context_map with this one."""
+    check_streams(states)
+    plan = DecodePlan()
+    packed, las, max_nbits = pack_tables(states)
     if shared_tables:
         w1, w2 = packed[0][0], packed[0][1]
         cm0 = states[0].ac_context_map[0]
@@ -208,19 +255,7 @@ def build_plan(states, datas, raw_list, shared_tables=True):
         plan.cm_list = [np.asarray(states[0].ac_context_map[0], np.uint8)
                         ] * len(states)
     else:
-        # pad every image's alias table to the batch-max row count so
-        # per-image row strides match in the kernel's packed planes
-        max_rows = max(len(p[0]) // 128 for p in packed)
-        w1l, w2l = [], []
-        for p in packed:
-            w1 = p[0].view(np.int32).reshape(-1, 128)
-            w2 = p[1].view(np.int32).reshape(-1, 128)
-            if w1.shape[0] < max_rows:
-                pad = np.zeros((max_rows - w1.shape[0], 128), np.int32)
-                w1 = np.concatenate([w1, pad])
-                w2 = np.concatenate([w2, pad])
-            w1l.append(w1)
-            w2l.append(w2)
+        w1l, w2l, max_rows = per_image_alias(packed)
         plan.alias_w1_list, plan.alias_w2_list = w1l, w2l
         plan.alias_w1, plan.alias_w2 = w1l[0], w2l[0]
         plan.alias_rows = max_rows
@@ -229,7 +264,7 @@ def build_plan(states, datas, raw_list, shared_tables=True):
         cm_packed, cm_rows = _pack_context_map(plan.cm_list[0])
         plan.cm_packed, plan.cm_rows = cm_packed, cm_rows
     plan.las = las
-    plan.num_ctxs = bcm.num_ctxs
+    plan.num_ctxs = states[0].block_ctx_map.num_ctxs
     plan.num_ctxs_list = [st.block_ctx_map.num_ctxs for st in states]
     plan.max_bits_per_sym = 16 + max_nbits
     plan.states = states

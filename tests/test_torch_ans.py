@@ -10,7 +10,9 @@ runs the plain twin, ans_decode_plain; tests/test_torch_cuda.py holds the
 CUDA kernel to it on a card.
 """
 
+import copy
 import dataclasses
+import re
 import types
 
 import numpy as np
@@ -204,10 +206,198 @@ def test_corrupt_stream_raises_naming_lanes(case):
 
 
 def test_unfinished_lanes_raise(case, monkeypatch):
-    build = tak.build_lane_plan
+    build = tak.lane_plan_from_sections
     monkeypatch.setattr(
-        tak, "build_lane_plan",
-        lambda plan: dataclasses.replace(build(plan), t_alloc=100))
+        tak, "lane_plan_from_sections",
+        lambda *a: dataclasses.replace(build(*a), t_alloc=100))
     with pytest.raises(JXLError, match=r"^batch decode: device kernel "
                        r"flagged 8 lanes not ok: \[0, 1, 2, 3, 4, 5, 6, 7\]$"):
         tpu_codec.decode_batch_entropy(case.datas, "cpu")
+
+
+# ---------------------------------------------- the card's lane-plan route
+
+
+def _sections(datas):
+    """The port's parsed states of `datas` with their AC section bytes and
+    (offs, sizes), as prepare_batch_entropy hands them on."""
+    states, _ = tpu_codec._parse(datas, ac_raw=True)
+    return (states, [st.ac_raw[0] for st in states],
+            [st.ac_raw[1][0] for st in states])
+
+
+@pytest.fixture(scope="module")
+def mixed_pair():
+    """A d1 and a d4 stream: alias tables of different row counts, and AC
+    sections of odd byte length."""
+    return [codestream.encode_lossy(_image(512, s), distance=d, effort=3)
+            for d, s in ((1.0, 7), (4.0, 8))]
+
+
+@pytest.mark.parametrize("pair", ["case", "mixed_pair"])
+def test_lane_plan_from_sections_matches_jax_plan_route(pair, case, request):
+    """The card's route gives the LanePlan of the oracle route fed the JAX
+    package's DecodePlan, field for field, and the same program key."""
+    datas = case.datas if pair == "case" else request.getfixturevalue(pair)
+    states, frames, raws = _sections(datas)
+    if pair == "mixed_pair":
+        packed, _, _ = tans.pack_tables(states)
+        assert len({len(p[0]) // 128 for p in packed}) == 2
+        assert any(int(n) % 2 for _, sizes in raws for n in sizes)
+    got = tak.lane_plan_from_sections(states, frames, raws)
+    want = tak.build_lane_plan(_plan_for(datas))
+    for f in dataclasses.fields(tak.LanePlan):
+        a, b = getattr(got, f.name), getattr(want, f.name)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == b.dtype, f.name
+            np.testing.assert_array_equal(a, b, err_msg=f.name)
+        else:
+            assert a == b, f.name
+    assert got.t_alloc == 64 * 3 * tak.GROUP_BLOCKS ** 2
+    assert tak.program_key(tak.program_plan(got)) == \
+        tak.program_key(tak.program_plan(want))
+
+
+@pytest.mark.parametrize("pair", ["case", "mixed_pair"])
+def test_alias_packing_matches_jax(pair, case, request):
+    """The port's _pack_alias_tables finds max_nbits without a loop over
+    the tokens; its words and counts are the JAX package's."""
+    datas = case.datas if pair == "case" else request.getfixturevalue(pair)
+    states, _, _ = _sections(datas)
+    for st in states:
+        code, cm = st.ac_code[0], st.ac_context_map[0]
+        got = tans._pack_alias_tables(code, cm)
+        want = ans_tpu._pack_alias_tables(code, cm)
+        for a, b in zip(got[:2], want[:2]):
+            assert a.dtype == b.dtype
+            np.testing.assert_array_equal(a, b)
+        assert got[2:] == want[2:]
+
+
+@pytest.fixture(scope="module")
+def off_group_stream():
+    """A 384^2 stream: its frame is no whole number of 256^2 groups."""
+    return codestream.encode_lossy(_image(384, 3), distance=4.0, effort=3)
+
+
+@pytest.fixture(scope="module")
+def e5_stream():
+    """A 512^2 e5 stream, whose AC strategies merge blocks."""
+    return codestream.encode_lossy(_image(512, 5), distance=1.0, effort=5)
+
+
+def _wide(case):
+    # 129 copies of the pair: 1032 lanes of 4 groups each
+    states, frames, raws = _sections(case.datas)
+    return states * 129, frames * 129, raws * 129
+
+
+def _big_alias(case):
+    # image 1's tables at log alpha size 11: n x 2048 entries
+    states, frames, raws = _sections(case.datas)
+    st = copy.copy(states[1])
+    code = copy.copy(st.ac_code[0])
+    code.log_alpha_size = 11
+    st.ac_code = [code, *st.ac_code[1:]]
+    return [states[0], st], frames, raws
+
+
+# name: (a stream fixture, or what makes the inputs from the case; the
+# oracle's message, None where the test only holds the two routes equal)
+OUT_OF_SCOPE = {
+    "off_group": ("off_group_stream", "image dims not multiple of group"),
+    "merged_blocks": ("e5_stream", None),
+    "wide": (_wide, "more than 1024 lanes"),
+    "big_alias": (_big_alias,
+                  r"alias table too large for kernel \(\d+x2048\)"),
+}
+
+
+@pytest.mark.parametrize("name", list(OUT_OF_SCOPE))
+def test_lane_plan_from_sections_refuses_like_oracle(name, case, request):
+    """Outside the kernel's scope the card's route raises the oracle
+    route's first message, and for a stream decode_batch_entropy gives the
+    same fallback reason."""
+    source, match = OUT_OF_SCOPE[name]
+    stream = None
+    if isinstance(source, str):
+        stream = [request.getfixturevalue(source)]
+        states, frames, raws = _sections(stream)
+    else:
+        states, frames, raws = source(case)
+    if name == "merged_blocks":
+        assert any((st.strategy != 0).any() for st in states)
+    with pytest.raises(tans.AnsTpuUnsupported) as want:
+        tak.build_lane_plan(
+            tans.build_plan(states, frames, raws, shared_tables=False))
+    msg = str(want.value)
+    if match is not None:
+        assert re.fullmatch(match, msg)
+    with pytest.raises(tans.AnsTpuUnsupported) as got:
+        tak.lane_plan_from_sections(states, frames, raws)
+    assert str(got.value) == msg
+    if stream is None:
+        return
+    with pytest.raises(tans.AnsTpuUnsupported) as jax_route:
+        tak.build_lane_plan(_plan_for(stream))
+    assert str(jax_route.value) == msg
+    reason = f"batch decode: device entropy unsupported: {msg}"
+    if name == "off_group":
+        assert tpu_codec.decode_batch_entropy(stream, "cpu")[1] == {
+            "path": "host_entropy", "fallback": reason}
+    else:
+        # the host batch refuses merged blocks too, and notes the reason
+        with pytest.raises(JXLError, match="non-DCT8") as host:
+            tpu_codec.decode_batch_entropy(stream, "cpu")
+        assert f"device-entropy fallback: {reason}" in host.value.__notes__
+
+
+def _code(las, rights, cfgs):
+    """A stand-in AC code: one alias table a row of `rights` (its other
+    fields counting up), hybrid-uint configs (split_exponent,
+    msb_in_token, lsb_in_token)."""
+    size = 1 << las
+    tables = [types.SimpleNamespace(
+        cutoff=np.arange(size) % 7, right_value=np.asarray(r),
+        freq0=np.arange(size) * 3, offsets1=np.arange(size) * 5,
+        freq1=np.arange(size) * 11) for r in rights]
+    return types.SimpleNamespace(
+        alias_tables=tables, log_alpha_size=las,
+        uint_config=[types.SimpleNamespace(
+            split_exponent=s, msb_in_token=m, lsb_in_token=b)
+            for s, m, b in cfgs])
+
+
+ALIAS_CODES = {
+    # tokens up to 31 and 63 past the splits, every config's raw bits
+    "in_scope": (5, [np.arange(32) % 31, np.full(32, 63)],
+                 [(4, 1, 0), (2, 0, 2)]),
+    "small_tables": (4, [np.zeros(16, int)] * 3,
+                     [(7, 3, 3), (0, 0, 0), (1, 1, 0)]),
+    "alphabet": (5, [np.arange(32), np.full(32, 64)], [(4, 1, 0)] * 2),
+    # table 0 trips the config before table 1 the alphabet
+    "config_first": (5, [np.arange(32), np.full(32, 64)],
+                     [(8, 1, 0), (4, 1, 0)]),
+    "las": (3, [np.arange(8)] * 2, [(4, 1, 0)] * 2),
+}
+
+
+@pytest.mark.parametrize("name", list(ALIAS_CODES))
+def test_alias_packing_refuses_and_counts_like_jax(name):
+    """On stand-in tables, the port's _pack_alias_tables raises the JAX
+    package's first message, or gives its words and max_nbits."""
+    code = _code(*ALIAS_CODES[name])
+    try:
+        want = ans_tpu._pack_alias_tables(code, None)
+    except ans_tpu.AnsTpuUnsupported as e:
+        with pytest.raises(tans.AnsTpuUnsupported) as got:
+            tans._pack_alias_tables(code, None)
+        assert str(got.value) == str(e)
+        assert name != "in_scope"
+        return
+    got = tans._pack_alias_tables(code, None)
+    for a, b in zip(got[:2], want[:2]):
+        assert a.dtype == b.dtype
+        np.testing.assert_array_equal(a, b)
+    assert got[2:] == want[2:]
+    assert name in ("in_scope", "small_tables") and want[3] > 0
