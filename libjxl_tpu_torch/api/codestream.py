@@ -1094,8 +1094,8 @@ def decode_dc(data: bytes):
     from ..io.toc import read_group_offsets
     from ..ops.xyb import linear_to_srgb_u8, xyb_to_linear_rgb
     from ..vardct.frame import (VarDCTState, adaptive_dc_smoothing,
-                                decode_cmap_dc, decode_dc_group)
-    from ..vardct.ctx import decode_block_ctx_map
+                                decode_cmap_dc, decode_dc_group,
+                                read_block_ctx_map)
     from ..api.frame import (ModularFrameState, decode_global_info,
                              decode_modular_group, modular_dc_stream_id,
                              num_toc_entries)
@@ -1145,7 +1145,7 @@ def decode_dc(data: bytes):
             decode_noise(sr)
         state.matrices.decode_dc(sr)
         state.quantizer.decode(sr)
-        state.block_ctx_map = decode_block_ctx_map(sr)
+        read_block_ctx_map(sr, state)
         decode_cmap_dc(sr, state)
         decode_global_info(sr, fh, fd, mstate)
         state.tree = mstate.tree

@@ -759,11 +759,12 @@ def render_image(args, kw, device, mark=None):
 
 def _render_subsampled_device(state, fh, out, dev) -> bool:
     """The device render of a YCbCr frame (the JPEG recompression decode
-    path): pipeline.decode_render_subsampled (dequant + IDCT8, box chroma
-    upsampling, one render_tail launch for the filters, BT.601, the u8
-    write). Returns True when final pixels were produced in out['u8'];
-    False when the frame is outside its scope (host render)."""
-    fd = state.fd
+    path): pipeline.decode_render_subsampled (dequant + IDCT8, libjxl's
+    linear chroma upsampling, one render_tail launch for the filters,
+    BT.601, the u8 write). Returns True when final pixels were produced in
+    out['u8']; False when the frame is outside its scope (host render).
+    The host's part (the coefficient planes, DC, scaled quant maps and
+    dequant tables) is a jxl.stage span."""
     if not out.get("want_u8", False):
         return False
     if state.patches is not None or state.splines is not None \
@@ -772,8 +773,7 @@ def _render_subsampled_device(state, fh, out, dev) -> bool:
     if fh.upsampling != 1 \
             or fh.nonserialized_metadata.m.num_extra_channels:
         return False
-    qb = getattr(state, "qblocks_sub", None)
-    is444 = qb is None
+    is444 = getattr(state, "qblocks_sub", None) is None
     if is444:
         # 444 YCbCr rides the regular dense layout; all-DCT8 only
         if getattr(state, "qimg", None) is None:
@@ -789,29 +789,32 @@ def _render_subsampled_device(state, fh, out, dev) -> bool:
             return False
     elif getattr(state, "dc_sub", None) is None:
         return False
-    from ..vardct.subsampled import _shifts
+    with span("jxl.stage"):
+        args, kwargs, key = _stage_subsampled(state, fh, is444)
+    out["u8"] = programs.run(
+        "dec_sub", key, pipeline.decode_render_subsampled, *args,
+        device=dev, readback=True, **kwargs)
+    out["path"] = "device:u8-ycbcr"
+    state.device_output_done = True
+    return True
 
+
+def _stage_subsampled(state, fh, is444: bool):
+    """The "dec_sub" program's inputs, (args, kwargs) of
+    pipeline.decode_render_subsampled, and its key, the JAX package's
+    _jitted_sub's static arguments."""
+    from ..vardct.subsampled import _shifts, dense_planes
+
+    fd = state.fd
     hs, vs = _shifts(fh) if not is444 else ([0, 0, 0], [0, 0, 0])
     inv_gs = state.quantizer.inv_global_scale
-    qs, dcs, scaled = [], [], []
+    qs = [state.qimg[c] for c in range(3)] if is444 \
+        else dense_planes(state)
+    dcs, scaled = [], []
     for c in range(3):
-        nby = (fd.ysize_blocks + (1 << vs[c]) - 1) >> vs[c]
-        nbx = (fd.xsize_blocks + (1 << hs[c]) - 1) >> hs[c]
-        if is444:
-            qs.append(state.qimg[c])
-            dcs.append(np.asarray(state.dc[c], dtype=np.float32))
-        else:
-            plane5 = np.zeros((nby, 8, nbx, 8), dtype=np.int32)
-            d = qb[c]
-            if d:
-                keys = np.array(list(d.keys()), dtype=np.int64)
-                vals = np.stack([np.asarray(v) for v in
-                                 d.values()]).astype(np.int32)
-                plane5[keys[:, 0], :, keys[:, 1], :] = \
-                    vals.reshape(-1, 8, 8)
-            qs.append(plane5.reshape(nby * 8, nbx * 8))
-            dcs.append(np.asarray(state.dc_sub[c],
-                                  dtype=np.float32)[:nby, :nbx])
+        nby, nbx = qs[c].shape[0] // 8, qs[c].shape[1] // 8
+        dc = state.dc[c] if is444 else state.dc_sub[c][:nby, :nbx]
+        dcs.append(np.asarray(dc, dtype=np.float32))
         qf = state.raw_quant_field[::1 << vs[c], ::1 << hs[c]][:nby, :nbx]
         scaled.append((inv_gs / qf).astype(np.float32))
     lf = fh.loop_filter
@@ -820,21 +823,17 @@ def _render_subsampled_device(state, fh, out, dev) -> bool:
                    for c in range(3)]).astype(np.float32)
     shifts = tuple((int(hs[c]), int(vs[c])) for c in range(3))
     ts = (fd.ysize, fd.xsize) if (fd.ysize, fd.xsize) != (h, w) else None
-    # the "dec_sub" program (the JAX package's _jitted_sub): its key, the
-    # JAX one's static arguments
-    out["u8"] = programs.run(
-        "dec_sub", (shifts, int(lf.epf_iters), bool(lf.gab), True, ts),
-        pipeline.decode_render_subsampled,
-        [q.astype(np.int32, copy=False) for q in qs], dcs, scaled, dm,
-        gab_kernels(lf), block_sigma(state, lf), sad_mul(lf, h, w),
-        tuple(f32(v) for v in lf.epf_channel_scale), shifts,
-        epf_iters=int(lf.epf_iters), gab=bool(lf.gab),
-        pass0_sigma_scale=f32(lf.epf_pass0_sigma_scale),
-        pass2_sigma_scale=f32(lf.epf_pass2_sigma_scale), to_u8=True,
-        true_size=ts, device=dev, readback=True)
-    out["path"] = "device:u8-ycbcr"
-    state.device_output_done = True
-    return True
+    # render_tail reads the EPF sigma and SAD maps only when a pass runs
+    epf = lf.epf_iters > 0
+    args = ([q.astype(np.int32, copy=False) for q in qs], dcs, scaled, dm,
+            gab_kernels(lf), block_sigma(state, lf) if epf else None,
+            sad_mul(lf, h, w) if epf else None,
+            tuple(f32(v) for v in lf.epf_channel_scale), shifts)
+    kwargs = dict(epf_iters=int(lf.epf_iters), gab=bool(lf.gab),
+                  pass0_sigma_scale=f32(lf.epf_pass0_sigma_scale),
+                  pass2_sigma_scale=f32(lf.epf_pass2_sigma_scale),
+                  to_u8=True, true_size=ts)
+    return args, kwargs, (shifts, int(lf.epf_iters), bool(lf.gab), True, ts)
 
 
 def make_device_render(fh, out: dict, device="cuda"):

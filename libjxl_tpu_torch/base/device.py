@@ -16,7 +16,10 @@ adds one where it launches its kernel, and nowhere else, so a run can
 show that its main path went through the kernels. While a thread
 captures a CUDA graph (ops/programs.py) its wrappers' launches are
 recorded instead of counted (recording_launches), and each replay of
-the graph adds what its capture recorded.
+the graph adds what its capture recorded. One counter counts host work
+instead: "ac_native_sub", a chroma-subsampled frame's AC decoded by the
+native whole-image call (vardct/subsampled.decode_ac_bulk_native_sub),
+so a run can show that a transcoded JPEG took that route.
 
 Spans: span(name) marks a stretch of host work as a torch.profiler range
 (record_function) while a torch profiler records, and is one shared null
@@ -34,7 +37,8 @@ port's spans, every name starting with "jxl.":
 - jxl.frame.dc, jxl.frame.ac_global, jxl.frame.ac: a frame's DC (global
   and groups), AC global and AC group sections (api/frame.py);
 - jxl.entropy.plan: the device-entropy lane plan (api/tpu_codec.py);
-- jxl.stage: a batch's or a frame's render inputs made on the host;
+- jxl.stage: a batch's or a frame's render inputs made on the host
+  (an XYB frame's stage_image, a YCbCr frame's _stage_subsampled);
 - jxl.program.eager, .capture, .load, .replay, .readback: the program
   layer (ops/programs.py).
 

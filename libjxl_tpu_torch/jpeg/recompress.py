@@ -366,6 +366,14 @@ def recompress_jpeg_vardct(data: bytes) -> bytes:
     return b"".join(out)
 
 
+def _plane_block(plane, sby: int, sbx: int):
+    """The 64 coefficients of block (sby, sbx) of a dense plane
+    (vardct/subsampled.dense_planes), None outside it."""
+    if (sby + 1) * 8 > plane.shape[0] or (sbx + 1) * 8 > plane.shape[1]:
+        return None
+    return plane[sby * 8:sby * 8 + 8, sbx * 8:sbx * 8 + 8].reshape(-1)
+
+
 def _capture_vardct_state(stream: bytes):
     """Decode a transcoded VarDCT stream up to (but not through) the
     restoration pipeline and return (state, frame_header)."""
@@ -392,7 +400,7 @@ def _reconstruct_from_jbrd(jb, stream: bytes, exif: bytes = None,
     """Rebuild the original JPEG from a reference-format jbrd payload plus
     the coefficients of the transcoded VarDCT frame (decode_to_jpeg.h:35 /
     dec_frame.cc:432-473 analog)."""
-    from ..vardct.subsampled import _shifts
+    from ..vardct.subsampled import _shifts, dense_planes
     from .jbrd import APP_UNKNOWN, fill_app_segments, jpeg_from_jbrd
     from .data import ZIGZAG
 
@@ -425,6 +433,7 @@ def _reconstruct_from_jbrd(jb, stream: bytes, exif: bytes = None,
     fac = [st.quantizer.mul_dc(c) for c in range(3)]
     hsm, vsm = max(hs), max(vs)
     subsampled = hasattr(st, "qblocks_sub")
+    planes = dense_planes(st) if subsampled else None
     mcux = -(-width // (8 << hsm))
     mcuy = -(-height // (8 << vsm))
     components = []
@@ -437,7 +446,7 @@ def _reconstruct_from_jbrd(jb, stream: bytes, exif: bytes = None,
         for sby in range(hb):
             for sbx in range(wb):
                 if subsampled:
-                    blk = st.qblocks_sub[jc].get((sby, sbx))
+                    blk = _plane_block(planes[jc], sby, sbx)
                     dcv = st.dc_sub[jc][sby, sbx] \
                         if sby < st.dc_sub[jc].shape[0] \
                         and sbx < st.dc_sub[jc].shape[1] else 0.0
@@ -461,7 +470,7 @@ def _reconstruct_from_vardct(blob: bytes, stream: bytes) -> bytes:
     from ..api.codestream import parse_codestream_header
     from ..io.frame_header import FrameHeader
     from ..vardct.frame import decode_vardct_frame
-    from ..vardct.subsampled import _shifts
+    from ..vardct.subsampled import _shifts, dense_planes
     from .data import ZIGZAG
 
     jd = _meta_from_blob(blob)
@@ -480,6 +489,7 @@ def _reconstruct_from_vardct(blob: bytes, stream: bytes) -> bytes:
     hs, vs = _shifts(fh)
     fac = [st.quantizer.mul_dc(c) for c in range(3)]
     subsampled = hasattr(st, "qblocks_sub")
+    planes = dense_planes(st) if subsampled else None
     for ji, comp in enumerate(jd.components):
         jc = _JPEG_TO_JXL_CHANNEL[ji]
         hb, wb = comp.height_in_blocks, comp.width_in_blocks
@@ -487,7 +497,7 @@ def _reconstruct_from_vardct(blob: bytes, stream: bytes) -> bytes:
         for sby in range(hb):
             for sbx in range(wb):
                 if subsampled:
-                    blk = st.qblocks_sub[jc].get((sby, sbx))
+                    blk = _plane_block(planes[jc], sby, sbx)
                     dcv = st.dc_sub[jc][sby, sbx]
                 else:
                     joint = st.qblocks.get((sby, sbx))

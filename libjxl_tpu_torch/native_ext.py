@@ -89,6 +89,7 @@ def _bind(lib):
         lib.ans_write_tokens.restype = ctypes.c_int
         lib.decode_ac_group.restype = ctypes.c_int
         lib.decode_ac_image.restype = ctypes.c_int
+        lib.decode_ac_image_sub.restype = ctypes.c_int
         lib.place_ac_metadata.restype = ctypes.c_int
         lib.decode_channel_wp.restype = ctypes.c_int
         lib.ans_read_uints.restype = ctypes.c_int
@@ -322,6 +323,53 @@ def decode_ac_image_native(lib, data: bytes, group_off, group_size,
         ctypes.c_int(num_ac_ctx),
         ctypes.c_int(num_ctxs), ctypes.c_int(shift),
         ctypes.c_int(planes[0].shape[1]),
+        _ptr(planes[0], ctypes.c_int32), _ptr(planes[1], ctypes.c_int32),
+        _ptr(planes[2], ctypes.c_int32), ctypes.c_int(n_threads))
+
+
+def decode_ac_image_sub_native(lib, data: bytes, group_off, group_size,
+                               xsize_groups, group_dim_blocks, ncodes, qf,
+                               luts, num_ctxs, shifts, planes,
+                               n_threads=1, dc_idx=None):
+    """Whole-image AC decode of a chroma-subsampled frame
+    (native/vardct_decode.c decode_ac_image_sub): every block a DCT8, one
+    histogram set, channel c's coefficients into planes[c], a contiguous
+    int32 array of that channel's block grid x 8. qf: the luma-grid
+    quant field; luts: (bctx_lut, qf_thr, ord_img_off, ord_img_flat,
+    ord_lut), the order LUTs mapped to each channel's plane width, the
+    block-context LUT with its DC contexts last; shifts: (hs, vs) per
+    channel; dc_idx: each luma block's DC context (u8, the quant field's
+    shape), None with one DC context. Returns 0 or an error code."""
+    dview = np.frombuffer(data, dtype=np.uint8)
+    bctx_lut, qf_thr, ord_img_off, ord_img_flat, ord_lut = luts
+    nby, nbx = qf.shape
+    chan = np.array([s[0] for s in shifts] + [s[1] for s in shifts]
+                    + [p.shape[1] for p in planes], dtype=np.int32)
+    ndc = 1 if dc_idx is None else bctx_lut.shape[-1]
+    dc_ptr = None if dc_idx is None else _ptr(dc_idx, ctypes.c_uint8)
+    return lib.decode_ac_image_sub(
+        _ptr(dview, ctypes.c_uint8), ctypes.c_size_t(len(data)),
+        _ptr(group_off, ctypes.c_uint64), _ptr(group_size, ctypes.c_uint64),
+        ctypes.c_int(len(group_off)), ctypes.c_int(xsize_groups),
+        ctypes.c_int(group_dim_blocks),
+        _ptr(ncodes.cutoff, ctypes.c_uint16),
+        _ptr(ncodes.right, ctypes.c_uint16),
+        _ptr(ncodes.freq0, ctypes.c_uint16),
+        _ptr(ncodes.offsets1, ctypes.c_uint16),
+        _ptr(ncodes.freq1, ctypes.c_uint16),
+        ctypes.c_int(ncodes.log_alpha_size),
+        _ptr(ncodes.context_map, ctypes.c_uint8),
+        _ptr(ncodes.cfg_split, ctypes.c_uint32),
+        _ptr(ncodes.cfg_msb, ctypes.c_uint32),
+        _ptr(ncodes.cfg_lsb, ctypes.c_uint32),
+        _ptr(qf, ctypes.c_int32), ctypes.c_int(nby), ctypes.c_int(nbx),
+        _ptr(bctx_lut, ctypes.c_int32),
+        _ptr(qf_thr, ctypes.c_int64), ctypes.c_int(len(qf_thr)),
+        dc_ptr, ctypes.c_int(ndc),
+        _ptr(ord_img_off, ctypes.c_int64),
+        _ptr(ord_img_flat, ctypes.c_int32), _ptr(ord_lut, ctypes.c_int32),
+        ctypes.c_int(ncodes.cutoff.shape[0]),  # true table count
+        ctypes.c_int(num_ctxs), _ptr(chan, ctypes.c_int32),
         _ptr(planes[0], ctypes.c_int32), _ptr(planes[1], ctypes.c_int32),
         _ptr(planes[2], ctypes.c_int32), ctypes.c_int(n_threads))
 

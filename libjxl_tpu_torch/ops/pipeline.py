@@ -613,6 +613,23 @@ def ycbcr_to_rgb(planes: torch.Tensor) -> torch.Tensor:
     return torch.stack([r, g, b])
 
 
+def _upsample_axis(plane: torch.Tensor, dim: int, n: int, extent: int,
+                   shift: int) -> torch.Tensor:
+    """The first n samples along dim of a channel upsampled by 2 ** shift
+    (libjxl's stage_chroma_upsampling.cc, one axis): output 2x is 0.75
+    in[x] + 0.25 in[x - 1], output 2x + 1 is 0.75 in[x] + 0.25 in[x + 1],
+    an index outside the channel's extent replaced by its edge; outputs
+    past twice the extent repeat its last output. shift 0: the first n
+    samples. The host's form is vardct/subsampled.upsample_taps."""
+    if not shift:
+        return plane.narrow(dim, 0, n)
+    o = torch.arange(n, device=plane.device).clamp_(max=2 * extent - 1)
+    x = o >> 1
+    nb = (x - 1 + 2 * (o & 1)).clamp_(0, extent - 1)
+    return 0.75 * plane.index_select(dim, x) \
+        + 0.25 * plane.index_select(dim, nb)
+
+
 def decode_render_subsampled(qs, dcs, scaled_maps, dm, gab_kernels,
                              inv_sigma, sad_mul, channel_scale, shifts,
                              epf_iters=0, gab=False, pass0_sigma_scale=0.9,
@@ -621,20 +638,24 @@ def decode_render_subsampled(qs, dcs, scaled_maps, dm, gab_kernels,
     """The device decode of a chroma-subsampled YCbCr DCT8 frame
     (dec_group.cc:569 quant-from-luma + stage_chroma_upsampling +
     stage_ycbcr): per-channel dequant + IDCT8 at native resolution (torch
-    ops), box chroma upsampling, Gaborish/EPF on the block-padded luma-size
-    planes (one kernels.render_tail launch, XYB form, whatever the
-    filters), BT.601, then the crop to true_size.
+    ops), libjxl's linear chroma upsampling (_upsample_axis), Gaborish/EPF
+    on the block-padded luma-size planes, mirrored past true_size (one
+    kernels.render_tail launch, XYB form, whatever the filters), BT.601,
+    then the crop to true_size.
 
     qs: 3 x int[nbyc*8, nbxc*8] dense transposed-layout coefficients;
     dcs: 3 x f32[nbyc, nbxc] unquantized DC; scaled_maps: 3 x f32[nbyc,
     nbxc] per-block inv_global_scale/quant (from the luma quant field);
     dm: f32[3, 8, 8]; inv_sigma per block f32[nby, nbx] of the luma plane
-    (the JAX form takes it per pixel); shifts: (hs, vs) per channel.
+    (the JAX form takes it per pixel) and sad_mul f32[h, w], both None
+    without EPF; shifts: (hs, vs) per channel.
     Returns RGB f32[3, h, w] or, with to_u8, u8[h, w, 3]."""
     from .kernels import render_tail
 
+    # the frame's block-padded size (the luma plane's) and true size
+    h, w = qs[1].shape[0] << shifts[1][1], qs[1].shape[1] << shifts[1][0]
+    th, tw = true_size if true_size is not None else (h, w)
     planes = []
-    h = w = None
     for c in range(3):
         q = qs[c]
         nby, nbx = q.shape[0] // 8, q.shape[1] // 8
@@ -644,14 +665,13 @@ def decode_render_subsampled(qs, dcs, scaled_maps, dm, gab_kernels,
         co[:, :, 0, 0] = dcs[c]
         plane = idct8_blocks(co).transpose(1, 2).reshape(nby * 8, nbx * 8)
         hs, vs = shifts[c]
-        if vs:
-            plane = plane.repeat_interleave(1 << vs, 0)
-        if hs:
-            plane = plane.repeat_interleave(1 << hs, 1)
-        if c == 1:
-            h, w = plane.shape
-        planes.append(plane)
-    ycc = torch.stack([p[:h, :w] for p in planes])
+        plane = _upsample_axis(plane, 1, w, -(-tw >> hs), hs)
+        planes.append(_upsample_axis(plane, 0, h, -(-th >> vs), vs))
+    ycc = torch.stack(planes)
+    if true_size is not None and (gab or epf_iters):
+        # the filters mirror at the frame's edge, as the host's
+        # apply_restoration and the XYB render do
+        mirror_to_true_size(ycc, true_size)
     ycc = render_tail(ycc, gab_kernels if gab else None, inv_sigma, sad_mul,
                       channel_scale, epf_iters, pass0_sigma_scale,
                       pass2_sigma_scale, out="xyb")

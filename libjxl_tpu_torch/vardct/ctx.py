@@ -67,6 +67,18 @@ class BlockCtxMap:
         idx = idx * self.num_dc_ctxs + dc_idx
         return self.ctx_map[idx]
 
+    def dc_index(self, q: list) -> np.ndarray:
+        """Each block's DC context (compressed_dc.cc DequantDC): q[c] is
+        channel c's quantized DC at the blocks' positions; channel c's
+        bucket counts its thresholds below the value, and the buckets
+        combine as (b0 * (n2 + 1) + b2) * (n1 + 1) + b1."""
+        b = [np.zeros(np.shape(q[c]), dtype=np.int64) for c in range(3)]
+        for c in range(3):
+            for t in self.dc_thresholds[c]:
+                b[c] += np.asarray(q[c]) > t
+        n = [len(t) + 1 for t in self.dc_thresholds]
+        return (b[0] * n[2] + b[2]) * n[1] + b[1]
+
     def nonzero_context(self, non_zeros: int, block_ctx: int) -> int:
         non_zeros = min(non_zeros, 64)
         ctx = non_zeros if non_zeros < 8 else 4 + non_zeros // 2
@@ -106,11 +118,6 @@ def decode_block_ctx_map(r) -> BlockCtxMap:
     b.ctx_map, b.num_ctxs = decode_context_map(size, r)
     if b.num_ctxs > 16:
         raise JXLError("too many block context map contexts")
-    if b.num_dc_ctxs != 1:
-        # per-block dc_idx derivation from quantized DC is not
-        # implemented; every decode path would silently pick dc_idx=0
-        # and mis-context the whole frame — fail loudly instead
-        raise JXLError("dc-conditioned block context maps unsupported")
     return b
 
 

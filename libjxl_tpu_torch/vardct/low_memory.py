@@ -18,10 +18,11 @@ per AC group (PrepareNoiseInput), so it reproduces exactly per strip.
 
 Progressive passes (all passes of a row entropy-decode before it
 renders), 2-8x upsampling (strip-wise, exact seam context) and
-subsampled YCbCr (per-channel strip render + box chroma upsampling)
-are supported. Features needing whole-image context (patches, splines,
-extra channels, animation blending) raise JXLError; callers fall back
-to the regular decoder.
+subsampled YCbCr (per-channel strip render, then libjxl's linear chroma
+upsampling with one chroma row of each neighbouring strip, so a row is
+decoded one ahead) are supported. Features needing whole-image context
+(patches, splines, extra channels, animation blending) raise JXLError;
+callers fall back to the regular decoder.
 
 Device strips: with a torch device, a stream inside the device scope
 (XYB, all-DCT8, no extra channels, noise, upsampling, patches or
@@ -144,48 +145,59 @@ def _add_strip_noise(state, strip, gy):
 
 
 def _render_strip_sub(state, gy):
-    """Subsampled-YCbCr strip render: per-channel dequant + IDCT8 at
-    each channel's resolution for this group row only, then box chroma
-    upsampling to luma resolution (render_groups_sub restricted to the
-    row; stage_chroma_upsampling analog). qblocks_sub holds only the
-    current row's blocks (cleared per row), keyed by GLOBAL (sby, sbx).
-    """
-    from ..ops.dct import inv_matrix
-    from . import ac_strategy as acs
-    from .frame import adjust_quant_bias
-
-    from .subsampled import _shifts
+    """Subsampled-YCbCr strip render: per-channel dequant + IDCT8 at each
+    channel's resolution for this group row only (render_groups_sub
+    restricted to the row). qblocks_sub holds only the current row's
+    blocks (cleared per row), keyed by GLOBAL (sby, sbx). Returns each
+    channel's pixel rows at its own resolution, [(first row, f64 rows)];
+    _upsample_strip_sub takes them to the frame's resolution."""
+    from .subsampled import _shifts, channel_pixels
 
     fd = state.fd
     hs, vs = _shifts(state.fh)
     gdim_b = fd.group_dim // 8
     by0 = gy * gdim_b
     by1 = min(by0 + gdim_b, fd.ysize_blocks)
-    rows = (by1 - by0) * 8
-    inv_gs = state.quantizer.inv_global_scale
-    i8 = inv_matrix(8)
-    out = np.zeros((3, rows, fd.xsize_padded), dtype=np.float64)
+    out = []
     for c in range(3):
         cb0 = by0 >> vs[c]
         cb1 = -(-by1 >> vs[c])
         nbx = (fd.xsize_blocks + (1 << hs[c]) - 1) >> hs[c]
-        dm = state.matrices.dequant_matrix(acs.QUANT_TABLE[acs.DCT],
-                                           c).reshape(-1)
-        plane = np.zeros(((cb1 - cb0) * 8, nbx * 8))
+        plane5 = np.zeros((cb1 - cb0, 8, nbx, 8), dtype=np.int32)
         for (sby, sbx), qblock in state.qblocks_sub[c].items():
-            if not (cb0 <= sby < cb1):
-                continue
-            quant = int(state.raw_quant_field[sby << vs[c],
-                                              sbx << hs[c]])
-            co = adjust_quant_bias(qblock, c) * dm * (inv_gs / quant)
-            co = co.reshape(8, 8).copy()
-            co[0, 0] = state.dc_sub[c][sby, sbx]
-            pix = i8 @ co.T @ i8.T
-            plane[(sby - cb0) * 8:(sby - cb0) * 8 + 8,
-                  sbx * 8:sbx * 8 + 8] = pix
-        up = np.repeat(np.repeat(plane, 1 << vs[c], 0), 1 << hs[c], 1)
-        y_off = by0 * 8 - (cb0 << vs[c]) * 8
-        out[c] = up[y_off:y_off + rows, :fd.xsize_padded]
+            if cb0 <= sby < cb1:
+                plane5[sby - cb0, :, sbx, :] = \
+                    np.asarray(qblock).reshape(8, 8)
+        q = plane5.reshape((cb1 - cb0) * 8, nbx * 8)
+        out.append((cb0 * 8, channel_pixels(state, c, q, cb0)))
+    return out
+
+
+def _upsample_strip_sub(state, gy, prev, cur, nxt):
+    """The frame-resolution strip of group row gy (3, rows, xsize_padded)
+    from the channel rows of rows gy - 1, gy and gy + 1 (_render_strip_sub;
+    None past the frame): libjxl's linear chroma upsampling reads one
+    channel row beyond the strip at each seam, so a strip equals the
+    whole-image render's rows."""
+    from .subsampled import _shifts, channel_extent, upsample_chroma
+
+    fd = state.fd
+    hs, vs = _shifts(state.fh)
+    gdim = fd.group_dim
+    y0 = gy * gdim
+    rows = min(gdim, fd.ysize_padded - y0)
+    out = np.zeros((3, rows, fd.xsize_padded), dtype=np.float64)
+    for c in range(3):
+        row0, plane = cur[c]
+        parts = [plane]
+        if prev is not None:
+            parts.insert(0, prev[c][1][-1:])
+            row0 -= 1
+        if nxt is not None:
+            parts.append(nxt[c][1][:1])
+        out[c] = upsample_chroma(
+            np.concatenate(parts), hs[c], vs[c], (y0, rows),
+            (0, fd.xsize_padded), channel_extent(fd, hs[c], vs[c]), row0)
     return out
 
 
@@ -313,7 +325,6 @@ def decode_vardct_strips(r: BitReader, fh, num_threads: int = 0,
         FLAG_USE_DC_FRAME,
     )
     from ..io.toc import read_group_offsets
-    from .ctx import decode_block_ctx_map
     from .frame import (
         ORDER_ENC,
         VarDCTState,
@@ -321,6 +332,7 @@ def decode_vardct_strips(r: BitReader, fh, num_threads: int = 0,
         decode_ac_group,
         decode_cmap_dc,
         decode_dc_group,
+        read_block_ctx_map,
     )
     from ..entropy.decode import decode_histograms
     from ..io.fields import u32_read
@@ -394,7 +406,7 @@ def decode_vardct_strips(r: BitReader, fh, num_threads: int = 0,
             state.noise_lut = decode_noise(sr)
         state.matrices.decode_dc(sr)
         state.quantizer.decode(sr)
-        state.block_ctx_map = decode_block_ctx_map(sr)
+        read_block_ctx_map(sr, state)
         decode_cmap_dc(sr, state)
         decode_global_info(sr, fh, fd, mstate)
         state.tree = mstate.tree
@@ -532,9 +544,22 @@ def decode_vardct_strips(r: BitReader, fh, num_threads: int = 0,
             cache.clear()
         return strip
 
+    channel_rows = {}
+
     def decode_row(gy):
-        decode_row_blocks(gy)
-        return finish_row(gy)
+        if not subsampled:
+            decode_row_blocks(gy)
+            return finish_row(gy)
+        # the strip's last rows upsample from the next row's first
+        # channel row: decode one group row ahead
+        for k in (gy, gy + 1):
+            if k < fd.ysize_groups and k not in channel_rows:
+                decode_row_blocks(k)
+                channel_rows[k] = finish_row(k)
+        channel_rows.pop(gy - 2, None)
+        return _upsample_strip_sub(state, gy, channel_rows.get(gy - 1),
+                                   channel_rows[gy],
+                                   channel_rows.get(gy + 1))
 
     emitter = _device_strip_emitter(state, fh, device, mark) \
         if on_device else None

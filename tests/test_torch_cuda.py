@@ -238,6 +238,34 @@ def test_decode_ycbcr_on_card_matches_cpu(cuda):
     assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
 
 
+@pytest.mark.cuda
+def test_decode_transcode_on_card_matches_the_plain_reference(cuda):
+    """A 4:2:0 JPEG transcode of several groups: its AC by the native
+    subsampled decode, then one render_tail launch in the "dec_sub"
+    program; u8 within one step of the plain decode of the JPEG's
+    coefficients (tests/reference/jpeg_transcode_ref.py), under 1e-3 of
+    the values off, and within one step of the CPU's render."""
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.jpeg.data import parse_jpeg
+    from libjxl_tpu_torch.jpeg.recompress import recompress_jpeg_vardct
+    from libjxl_tpu_torch.jpegli import encode_jpegli
+    from reference import jpeg_transcode_ref
+
+    jpg = encode_jpegli(_photo(520, 600, 9), quality=90, subsampling="420",
+                        std_tables=True, adaptive=False, optimize=False)
+    data = recompress_jpeg_vardct(jpg)
+    info = {}
+    (got, _), n = _launched(codestream.decode, data, device=cuda,
+                            decode_info=info, num_threads=4)
+    assert info["path"] == "device:u8-ycbcr"
+    assert n == {"render_tail": 1, "ac_native_sub": 1}
+    want = jpeg_transcode_ref.decode_parsed(parse_jpeg(jpg))
+    d = np.abs(got.astype(int) - want.astype(int))
+    assert d.max() <= 1 and (d != 0).mean() < 1e-3
+    cpu, _ = codestream.decode(data, device="cpu")
+    assert np.abs(got.astype(int) - cpu.astype(int)).max() <= 1
+
+
 def _filtered_ycbcr420(h, w):
     """A 4:2:0 YCbCr stream of _photo with Gaborish and 2 EPF passes
     (tests/test_decode_path.py's builder, the port's encoder)."""
@@ -282,9 +310,9 @@ def _filtered_ycbcr420(h, w):
                          ids=["aligned", "true-size-crop"])
 def test_decode_filtered_ycbcr_on_card_matches_cpu(cuda, shape):
     """A 4:2:0 YCbCr frame with Gaborish and 2 EPF passes: render_tail
-    filters the block-padded luma-size planes (no true-size mirror) and
-    the crop follows BT.601. One render_tail launch, u8 within one step
-    of the same render on the CPU (the twins)."""
+    filters the block-padded luma-size planes (mirrored past the true
+    size) and the crop follows BT.601. One render_tail launch, u8 within
+    one step of the same render on the CPU (the twins)."""
     from libjxl_tpu_torch.api import codestream
 
     data = _filtered_ycbcr420(*shape)

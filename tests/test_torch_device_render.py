@@ -258,9 +258,58 @@ def _subsampled_inputs(rng, nby, nbx, shifts):
     return qs, dcs, scaled
 
 
+def _linear_up(plane, axis, n, extent, shift):
+    """libjxl's chroma upsampling (stage_chroma_upsampling.cc) along one
+    axis, NumPy: the first n outputs, output 2x = 0.75 in[x] + 0.25
+    in[x - 1], 2x + 1 = 0.75 in[x] + 0.25 in[x + 1], indices clamped to
+    the channel's extent, outputs past twice the extent its last."""
+    if not shift:
+        return np.take(plane, np.arange(n), axis)
+    o = np.minimum(np.arange(n), 2 * extent - 1)
+    x = o >> 1
+    nb = np.clip(x - 1 + 2 * (o & 1), 0, extent - 1)
+    return (np.float32(0.75) * np.take(plane, x, axis)
+            + np.float32(0.25) * np.take(plane, nb, axis))
+
+
+def _jax_subsampled(qs, dcs, scaled, dm, gab, isg_px, sad, shifts, h, w,
+                    epf, filters, true_size):
+    """jpl.decode_render_subsampled's stages (the JAX package's dequant,
+    IDCT8, Gaborish, EPF and BT.601) with libjxl's linear chroma
+    upsampling in place of its repetition, and the frame mirrored past
+    the true size before the filters, as the host render does."""
+    from libjxl_tpu.render.pipeline import mirror_fill_padding
+
+    th, tw = true_size or (h, w)
+    planes = []
+    for c in range(3):
+        blocks = jpl.image_to_blocks(jnp.asarray(qs[c], jnp.float32)[None])[0]
+        co = jpl.adjust_quant_bias_jax(blocks, c) \
+            * jnp.asarray(dm[c]).reshape(1, 1, 8, 8) \
+            * jnp.asarray(scaled[c])[:, :, None, None]
+        co = co.at[:, :, 0, 0].set(jnp.asarray(dcs[c]))
+        plane = np.asarray(jpl.blocks_to_image(jpl.idct8_blocks(co[None]))[0])
+        hs, vs = shifts[c]
+        plane = _linear_up(plane, 1, w, -(-tw >> hs), hs)
+        planes.append(_linear_up(plane, 0, h, -(-th >> vs), vs))
+    ycc = np.stack(planes)
+    if true_size is not None and filters:
+        ycc = mirror_fill_padding(ycc, th, tw)
+    ycc = jnp.asarray(ycc, jnp.float32)
+    if filters:
+        ycc = jpl.gaborish_jax(ycc, jnp.asarray(gab))
+        ycc = jpl.epf_jax(ycc, jnp.asarray(isg_px), jnp.asarray(sad), CS,
+                          epf, np.float32(0.9), np.float32(6.5))
+    return jpl.ycbcr_to_rgb_jax(ycc)[:, :th, :tw]
+
+
 @pytest.mark.parametrize("mode,filters,true_size", [
     ("420", False, None), ("420", True, (83, 61)), ("422", True, None)])
 def test_decode_render_subsampled_matches_jax(mode, filters, true_size):
+    """The YCbCr render against the JAX package's stages, whose chroma
+    repetition is replaced by libjxl's linear upsampling (_jax_subsampled):
+    the JAX package's own render repeats chroma samples, up to 96 u8
+    steps from libjxl's pixels at a saturated edge."""
     rng = np.random.default_rng(len(mode) + int(filters))
     shifts = ((1, 1), (0, 0), (1, 1)) if mode == "420" \
         else ((1, 0), (0, 0), (1, 0))
@@ -277,12 +326,9 @@ def test_decode_render_subsampled_matches_jax(mode, filters, true_size):
     got = tpl.decode_render_subsampled(
         [_t(q) for q in qs], [_t(d) for d in dcs], [_t(s) for s in scaled],
         _t(dm), _t(gab), _t(isg), _t(sad), CS, shifts, **kw)
-    ref = jpl.decode_render_subsampled(
-        tuple(jnp.asarray(q) for q in qs), tuple(jnp.asarray(d) for d in dcs),
-        tuple(jnp.asarray(s) for s in scaled), jnp.asarray(dm),
-        jnp.asarray(gab), jnp.asarray(np.repeat(np.repeat(isg, 8, 0), 8, 1)),
-        jnp.asarray(sad), CS, shifts, pass0_sigma_scale=np.float32(0.9),
-        pass2_sigma_scale=np.float32(6.5), **kw)
+    ref = _jax_subsampled(qs, dcs, scaled, dm, gab,
+                          np.repeat(np.repeat(isg, 8, 0), 8, 1), sad,
+                          shifts, h, w, epf, filters, true_size)
     assert got.shape == ref.shape == (3, *(true_size or (h, w)))
     _close(got, ref)
     kw["to_u8"] = True

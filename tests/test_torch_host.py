@@ -144,9 +144,24 @@ def test_decode_state_equals_the_jax_package(generated, epf):
 
 @pytest.mark.parametrize("name", _corpus_cases())
 def test_host_decode_conformance_equals_the_jax_package(name):
+    """Byte for byte, but the JPEG transcode: the JAX package repeats its
+    chroma samples where libjxl interpolates them, so that one is held to
+    the plain decode of jpeg_recon.jpg's coefficients
+    (tests/reference/jpeg_transcode_ref.py), within 1 u8 step and under
+    1e-3 of the values off."""
     data = (CONFORMANCE / f"{name}.jxl").read_bytes()
-    ref, _ = jcs.decode(data, device=False)
     out, _ = tcs.decode(data, device=None)
+    if name == "jpeg_recon":
+        from libjxl_tpu_torch.jpeg.data import parse_jpeg
+        from reference import jpeg_transcode_ref
+
+        ref = jpeg_transcode_ref.decode_parsed(parse_jpeg(
+            (CONFORMANCE / "jpeg_recon.jpg").read_bytes()))
+        assert out.dtype == ref.dtype and out.shape == ref.shape
+        d = np.abs(out.astype(int) - ref.astype(int))
+        assert d.max() <= 1 and (d != 0).mean() < 1e-3
+        return
+    ref, _ = jcs.decode(data, device=False)
     assert out.dtype == ref.dtype and out.shape == ref.shape
     np.testing.assert_array_equal(out, ref)
 

@@ -22,14 +22,12 @@ import numpy as np
 import pytest
 import torch
 
-from libjxl_tpu.api import codestream as jcs
 from libjxl_tpu.tools import benchmark as jbench
 from libjxl_tpu.tools import cjxl as jcjxl
 from libjxl_tpu.tools import djxl as jdjxl
 from libjxl_tpu.tools import jxlinfo as jinfo
 from libjxl_tpu_torch.api import codestream as tcs
 from libjxl_tpu_torch.extras.io import load_image, save_image
-from libjxl_tpu_torch.io.container import extract_codestream
 from libjxl_tpu_torch.jpegli import encode_jpegli
 from libjxl_tpu_torch.tools import benchmark as tbench
 from libjxl_tpu_torch.tools import cjxl as tcjxl
@@ -213,7 +211,8 @@ def test_djxl_on_the_twins_is_within_one_step(files, case, capsys):
     reports): within 1 u8 step of the JAX djxl's output, except a
     recompressed JPEG, whose YCbCr frame renders on the device where the
     host route decodes the reconstructed JPEG: that one is held to the
-    host decode of its codestream."""
+    plain decode of the JPEG's coefficients
+    (tests/reference/jpeg_transcode_ref.py)."""
     d, _ = files
     name, ext, args = DJXL_CASES[case]
     out = d / f"c-{case}.{ext}"
@@ -225,8 +224,11 @@ def test_djxl_on_the_twins_is_within_one_step(files, case, capsys):
     elif case != "partial":
         assert "render path: device:" in said, said
     if case == "jbrd-pixels":
-        stream = extract_codestream((d / name).read_bytes())
-        ref = jcs.decode(stream, device=False)[0]
+        from libjxl_tpu_torch.jpeg.data import parse_jpeg
+        from reference import jpeg_transcode_ref
+
+        ref = jpeg_transcode_ref.decode_parsed(
+            parse_jpeg((d / "in.jpg").read_bytes()))
     else:
         run(jdjxl, [d / name, d / f"j-{case}.{ext}", *args])
         ref = load_image(d / f"j-{case}.{ext}")
