@@ -707,21 +707,22 @@ def check_ans_decode(small_streams, batch, host_qimg, dev, card):
 
 def counted(fn, *args, **kw):
     """fn(*args, **kw) and the launches it made, per kernel."""
-    from libjxl_tpu_torch.base.device import launch_counts
+    from libjxl_tpu_torch.base.device import kernel_launch_counts
 
-    before = launch_counts()
+    before = kernel_launch_counts()
     out = fn(*args, **kw)
-    after = launch_counts()
+    after = kernel_launch_counts()
     return out, {k: after[k] - before.get(k, 0) for k in after
                  if after[k] != before.get(k, 0)}
 
 
 def nonzero_counts():
-    """The launch counters that moved since the last reset: a counter
-    registered by a module that was imported but never launched is 0."""
-    from libjxl_tpu_torch.base.device import launch_counts
+    """The kernel launch counters that moved since the last reset: a
+    counter registered by a module that was imported but never launched
+    is 0."""
+    from libjxl_tpu_torch.base.device import kernel_launch_counts
 
-    return {k: n for k, n in launch_counts().items() if n}
+    return {k: n for k, n in kernel_launch_counts().items() if n}
 
 
 def check_probes(small_streams, batch, dev):

@@ -110,8 +110,19 @@ def launch_counter(name: str) -> LaunchCounter:
     return _COUNTERS.setdefault(name, LaunchCounter(name))
 
 
+# counters of host work done in native C, once a frame, which
+# launch_counts() reports beside the kernels' launches
+HOST_WORK_COUNTERS = ("ac_native_sub", "ac_global_native")
+
+
 def launch_counts() -> dict[str, int]:
     return {name: c.count for name, c in _COUNTERS.items()}
+
+
+def kernel_launch_counts() -> dict[str, int]:
+    """launch_counts() of the kernels alone: no HOST_WORK_COUNTERS."""
+    return {name: n for name, n in launch_counts().items()
+            if name not in HOST_WORK_COUNTERS}
 
 
 def reset_launch_counts() -> None:

@@ -134,6 +134,37 @@ def init_alias_table(distribution, log_alpha_size: int,
                       log_alpha_size)
 
 
+ALIAS_FIELDS = ("cutoff", "right_value", "freq0", "offsets1", "freq1")
+
+
+def alias_table_views(tables: np.ndarray, log_alpha_size: int) -> list:
+    """AliasTable objects over (5, n, 1 << log_alpha_size) uint16 rows
+    (native_ext.decode_ans_histograms_native's layout): table k's fields
+    are views of tables[:, k]."""
+    return [AliasTable(*fields, log_alpha_size)
+            for fields in zip(*map(list, tables))]
+
+
+def stacked_alias_fields(tables: list, log_alpha_size: int) -> np.ndarray:
+    """The tables' fields as one (5, n, 1 << log_alpha_size) uint16 array,
+    in ALIAS_FIELDS order: the array they view where alias_table_views
+    made them, else a copy."""
+    n, size = len(tables), 1 << log_alpha_size
+    base = tables[0].cutoff.base if n else None
+    if isinstance(base, np.ndarray) and base.shape == (5, n, size) \
+            and base.dtype == np.uint16:
+        start, row = base.ctypes.data, base.strides[1]
+        if all(t.cutoff.base is base
+               and t.cutoff.__array_interface__["data"][0] == start + k * row
+               for k, t in enumerate(tables)):
+            return base
+    out = np.zeros((5, n, size), dtype=np.uint16)
+    for k, t in enumerate(tables):
+        for f, name in enumerate(ALIAS_FIELDS):
+            out[f, k] = getattr(t, name)
+    return out
+
+
 def build_reverse_map(table: AliasTable, alphabet_size: int):
     """For the encoder: reverse_map[symbol][offset] = state residue
     (ANSBuildInfoTable, enc_ans.cc:44-68). Returns a dense int32 array of

@@ -8,10 +8,11 @@ from __future__ import annotations
 
 import numpy as np
 
+from .. import native_ext
 from ..base.status import JXLError
 from ..io.bits import BitReader
 from ..io.fields import BitsOffset, Bundle, U32Enc, Val
-from .alias import AliasTable, init_alias_table
+from .alias import AliasTable, alias_table_views, init_alias_table
 from .histogram import decode_varlen_uint16, read_histogram
 from .hybrid_uint import HybridUintConfig
 from .params import (
@@ -92,22 +93,11 @@ def _ceil_log2(x: int) -> int:
 
 
 def inverse_move_to_front(values: list) -> list:
-    if len(values) >= 64:
-        from ..native_ext import get_lib
-
-        lib = get_lib()
-        if lib is not None and hasattr(lib, "inverse_mtf"):
-            import ctypes
-
-            import numpy as np
-
-            arr = np.ascontiguousarray(values, dtype=np.uint32)
-            rc = lib.inverse_mtf(
-                arr.ctypes.data_as(ctypes.POINTER(ctypes.c_uint32)),
-                ctypes.c_int(len(arr)))
-            if rc != 0:
-                raise JXLError("invalid MTF index")
-            return [int(v) for v in arr]
+    lib = native_ext.get_lib() if len(values) >= 64 else None
+    if lib is not None:
+        arr = np.array(values, dtype=np.uint32)
+        native_ext.inverse_mtf_native(lib, arr)
+        return arr.tolist()
     mtf = list(range(256))
     out = []
     for idx in values:
@@ -134,26 +124,20 @@ def decode_context_map(num_contexts: int, r: BitReader):
         native = None
         if (not code.use_prefix_code and not code.lz77.enabled
                 and num_contexts >= 64):
-            from ..native_ext import NativeCodes, ans_read_uints_native, \
-                get_lib
-
-            lib = get_lib()
+            lib = native_ext.get_lib()
             if lib is not None:
-                native = ans_read_uints_native(
+                native = native_ext.ans_read_uints_native(
                     lib, r.data, r.total_bits_consumed(), reader.state,
-                    NativeCodes(code, sink_map), num_contexts, 0)
+                    native_ext.NativeCodes(code, sink_map), num_contexts, 0)
         if native is not None:
-            vals, bitpos, state = native
-            maxsym = int(vals.max()) if num_contexts else 0
-            context_map = [int(v) for v in vals]
+            vals, bitpos, reader.state = native
             r.seek_bits(bitpos)
-            reader.state = state
-        else:
-            maxsym = 0
-            for i in range(num_contexts):
-                sym = reader.read_hybrid_uint(0, r, sink_map)
-                maxsym = max(maxsym, sym)
-                context_map[i] = sym
+            return _checked_context_map(lib, vals, reader, use_mtf)
+        maxsym = 0
+        for i in range(num_contexts):
+            sym = reader.read_hybrid_uint(0, r, sink_map)
+            maxsym = max(maxsym, sym)
+            context_map[i] = sym
         if maxsym >= 256:
             raise JXLError("invalid cluster ID")
         if not reader.check_final_state():
@@ -164,6 +148,22 @@ def decode_context_map(num_contexts: int, r: BitReader):
     if set(context_map) != set(range(num_histograms)):
         raise JXLError("incomplete context map")
     return context_map, num_histograms
+
+
+def _checked_context_map(lib, vals: np.ndarray, reader, use_mtf: bool):
+    """decode_context_map's checks and inverse move-to-front over the
+    natively read u32 map, in place; the map becomes a list once."""
+    if vals.max() >= 256:
+        raise JXLError("invalid cluster ID")
+    if not reader.check_final_state():
+        raise JXLError("invalid context map ANS stream")
+    if use_mtf:
+        native_ext.inverse_mtf_native(lib, vals)
+    num_histograms = int(vals.max()) + 1
+    if np.count_nonzero(np.bincount(vals, minlength=num_histograms)) \
+            != num_histograms:
+        raise JXLError("incomplete context map")
+    return vals.tolist(), num_histograms
 
 
 class ANSCode:
@@ -183,6 +183,15 @@ def decode_histograms(r: BitReader, num_contexts: int,
                       disallow_lz77: bool = False):
     """DecodeHistograms (dec_ans.cc:336-370).
     Returns (ANSCode, context_map)."""
+    return decode_histogram_set(r, num_contexts, disallow_lz77)[:2]
+
+
+def decode_histogram_set(r: BitReader, num_contexts: int,
+                         disallow_lz77: bool = False):
+    """decode_histograms, and whether the set's ANS histograms were read
+    and made alias tables in C (native_ext.decode_ans_histograms_native,
+    wherever the library is there). Returns (ANSCode, context_map,
+    native)."""
     code = ANSCode()
     code.lz77.read(r)
     if code.lz77.enabled:
@@ -216,22 +225,29 @@ def decode_histograms(r: BitReader, num_contexts: int,
                 p = PrefixCode([])  # degenerate: always symbol 0, zero bits
                 p.single_symbol = 0
                 code.prefix_codes.append(p)
-    else:
-        for c in range(num_histograms):
-            counts = read_histogram(r, ANS_LOG_TAB_SIZE)
-            if len(counts) > ANS_MAX_ALPHABET_SIZE:
-                raise JXLError("alphabet size too large")
-            while counts and counts[-1] == 0:
-                counts.pop()
-            degenerate = len(counts) - 1 if counts else 0
-            for s in range(max(0, degenerate)):
-                if counts[s] != 0:
-                    degenerate = -1
-                    break
-            code.degenerate_symbols[c] = degenerate
-            code.alias_tables.append(
-                init_alias_table(counts, code.log_alpha_size))
-    return code, context_map
+        return code, context_map, False
+    lib = native_ext.get_lib()
+    if lib is not None:
+        tables, code.degenerate_symbols = \
+            native_ext.decode_ans_histograms_native(
+                lib, r, num_histograms, code.log_alpha_size)
+        code.alias_tables = alias_table_views(tables, code.log_alpha_size)
+        return code, context_map, True
+    for c in range(num_histograms):
+        counts = read_histogram(r, ANS_LOG_TAB_SIZE)
+        if len(counts) > ANS_MAX_ALPHABET_SIZE:
+            raise JXLError("alphabet size too large")
+        while counts and counts[-1] == 0:
+            counts.pop()
+        degenerate = len(counts) - 1 if counts else 0
+        for s in range(max(0, degenerate)):
+            if counts[s] != 0:
+                degenerate = -1
+                break
+        code.degenerate_symbols[c] = degenerate
+        code.alias_tables.append(
+            init_alias_table(counts, code.log_alpha_size))
+    return code, context_map, False
 
 
 class ANSSymbolReader:

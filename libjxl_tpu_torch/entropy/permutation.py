@@ -8,6 +8,9 @@ kPermutationContexts contexts chosen from the previous value.
 
 from __future__ import annotations
 
+import numpy as np
+
+from .. import native_ext
 from ..base.status import JXLError
 from ..io.bits import BitReader, BitWriter
 from ..io.lehmer import compute_lehmer_code, decode_lehmer_code
@@ -23,26 +26,39 @@ def coeff_order_context(val: int) -> int:
     return min(token, PERMUTATION_CONTEXTS - 1)
 
 
-def read_permutation(skip: int, size: int, r: BitReader,
-                     reader: ANSSymbolReader, context_map):
-    """coeff_order.cc:34-60."""
+def read_permutations(skip_sizes, r: BitReader, reader: ANSSymbolReader,
+                      context_map) -> list:
+    """read_permutation of each (skip, size) in turn: one C call for them
+    all where the code is plain rANS and every size is at least 64 (i32
+    arrays), else the Python reads (lists)."""
     code = reader.code
-    if (not code.use_prefix_code and not code.lz77.enabled and size >= 64):
-        from ..native_ext import (NativeCodes, ans_read_permutation_native,
-                                  get_lib)
+    lib = None
+    if (not code.use_prefix_code and not code.lz77.enabled
+            and min((size for _, size in skip_sizes), default=0) >= 64):
+        lib = native_ext.get_lib()
+    if lib is None:
+        return [_read_permutation(skip, size, r, reader, context_map)
+                for skip, size in skip_sizes]
+    ncodes = getattr(reader, "_native_codes", None)
+    if ncodes is None:
+        ncodes = native_ext.NativeCodes(code, context_map)
+        reader._native_codes = ncodes
+    perms, bitpos, reader.state = native_ext.ans_read_permutations_native(
+        lib, r.data, r.total_bits_consumed(), reader.state, ncodes,
+        skip_sizes)
+    r.seek_bits(bitpos)
+    return perms
 
-        lib = get_lib()
-        if lib is not None:
-            ncodes = getattr(reader, "_native_codes", None)
-            if ncodes is None:
-                ncodes = NativeCodes(code, context_map)
-                reader._native_codes = ncodes
-            perm, bitpos, state = ans_read_permutation_native(
-                lib, r.data, r.total_bits_consumed(), reader.state,
-                ncodes, skip, size)
-            r.seek_bits(bitpos)
-            reader.state = state
-            return [int(v) for v in perm]
+
+def read_permutation(skip: int, size: int, r: BitReader,
+                     reader: ANSSymbolReader, context_map) -> list:
+    """coeff_order.cc:34-60."""
+    (perm,) = read_permutations([(skip, size)], r, reader, context_map)
+    return np.asarray(perm).tolist()
+
+
+def _read_permutation(skip: int, size: int, r: BitReader,
+                      reader: ANSSymbolReader, context_map) -> list:
     end = reader.read_hybrid_uint(coeff_order_context(size), r, context_map) + skip
     if end > size:
         raise JXLError("invalid permutation size")

@@ -14,6 +14,7 @@
  * libjxl_tpu/native_ext.py). Plain C interface for ctypes.
  */
 
+#include <math.h>
 #include <stdint.h>
 #include <stddef.h>
 #include <stdlib.h>
@@ -922,24 +923,14 @@ static int lehmer_decode_c(const uint32_t* code, uint32_t n, int32_t* out) {
   return 0;
 }
 
-int ans_read_permutation(const uint8_t* data, size_t size_bytes,
-                         uint64_t* bitpos_io, uint32_t* state_io,
-                         const uint16_t* cutoff, const uint16_t* right,
-                         const uint16_t* freq0, const uint16_t* offsets1,
-                         const uint16_t* freq1, int log_alpha_size,
-                         const uint8_t* context_map,
-                         const uint32_t* cfg_split, const uint32_t* cfg_msb,
-                         const uint32_t* cfg_lsb,
-                         uint32_t skip, uint32_t size, int32_t* out_perm) {
-  BitReaderV br;
-  vbr_init_at(&br, data, size_bytes, *bitpos_io);
-  uint32_t state = *state_io;
-  AnsTablesV t = {cutoff, right, freq0, offsets1, freq1, log_alpha_size,
-                  context_map, cfg_split, cfg_msb, cfg_lsb};
+/* ReadPermutation (coeff_order.cc:34-60) of one permutation of `size`
+ * with its first `skip` entries fixed, into out_perm. */
+static int read_permutation_c(BitReaderV* br, uint32_t* state,
+                              const AnsTablesV* t, uint32_t skip,
+                              uint32_t size, int32_t* out_perm) {
   int size_ctx = size ? 32 - __builtin_clz(size) : 0;
   if (size_ctx > 7) size_ctx = 7;
-  uint32_t end =
-      v_read_hybrid_uint(&t, size_ctx, &state, &br) + skip;
+  uint32_t end = v_read_hybrid_uint(t, size_ctx, state, br) + skip;
   if (end > size) return 2;
   uint32_t* lehmer = (uint32_t*)calloc(size, sizeof(uint32_t));
   if (!lehmer) return -1;
@@ -947,13 +938,40 @@ int ans_read_permutation(const uint8_t* data, size_t size_bytes,
   for (uint32_t i = skip; i < end; i++) {
     int ctx = last ? 32 - __builtin_clz(last) : 0;
     if (ctx > 7) ctx = 7;
-    lehmer[i] = v_read_hybrid_uint(&t, ctx, &state, &br);
+    lehmer[i] = v_read_hybrid_uint(t, ctx, state, br);
     last = lehmer[i];
     if (lehmer[i] >= size - i) { free(lehmer); return 3; }
   }
   int rc = lehmer_decode_c(lehmer, size, out_perm);
   free(lehmer);
   if (rc) return rc < 0 ? -1 : 4;
+  return 0;
+}
+
+/* n permutations in a row from one ANS stream (the coefficient orders of
+ * DecodeCoeffOrders, or one), the k-th of sizes[k] with skips[k] fixed,
+ * written one after another into out_perm. */
+int ans_read_permutations(const uint8_t* data, size_t size_bytes,
+                          uint64_t* bitpos_io, uint32_t* state_io,
+                          const uint16_t* cutoff, const uint16_t* right,
+                          const uint16_t* freq0, const uint16_t* offsets1,
+                          const uint16_t* freq1, int log_alpha_size,
+                          const uint8_t* context_map,
+                          const uint32_t* cfg_split, const uint32_t* cfg_msb,
+                          const uint32_t* cfg_lsb, int n,
+                          const uint32_t* skips, const uint32_t* sizes,
+                          int32_t* out_perm) {
+  BitReaderV br;
+  vbr_init_at(&br, data, size_bytes, *bitpos_io);
+  uint32_t state = *state_io;
+  AnsTablesV t = {cutoff, right, freq0, offsets1, freq1, log_alpha_size,
+                  context_map, cfg_split, cfg_msb, cfg_lsb};
+  for (int k = 0; k < n; k++) {
+    int rc = read_permutation_c(&br, &state, &t, skips[k], sizes[k],
+                                out_perm);
+    if (rc) return rc;
+    out_perm += sizes[k];
+  }
   *bitpos_io = ((uint64_t)br.pos << 3) - (uint64_t)br.bits;
   *state_io = state;
   return 0;
@@ -973,4 +991,355 @@ int inverse_mtf(uint32_t* values, int n) {
     mtf[0] = val;
   }
   return 0;
+}
+
+/* ---- the AC-global section (dec_frame.cc ProcessACGlobal) ----
+ * Adaptive DC smoothing and the ANS histogram set of DecodeHistograms,
+ * each one C call (vardct/frame.py adaptive_dc_smoothing,
+ * entropy/decode.py decode_histograms). */
+
+/* np.maximum: NaN in either argument propagates */
+static inline double np_maximum(double a, double b) {
+  return (a >= b || a != a) ? a : b;
+}
+
+/* one channel's row of the 3x3 weighted average into sm, and its
+ * |dc - sm| / f folded into the row's largest over the channels so far
+ * (the first channel's starts it) */
+static inline void smooth_row(const double* restrict up,
+                              const double* restrict mid,
+                              const double* restrict dn, double f, int w,
+                              int first, double* restrict sm,
+                              double* restrict gap) {
+  const double w1 = 0.20345139757231578;
+  const double w2 = 0.0334829185968739;
+  const double w0 = 1.0 - 4.0 * (w1 + w2);
+  for (int x = 1; x + 1 < w; x++) {
+    double corner = up[x - 1] + up[x + 1];
+    corner = corner + dn[x - 1];
+    corner = corner + dn[x + 1];
+    double side = mid[x - 1] + mid[x + 1];
+    side = side + up[x];
+    side = side + dn[x];
+    sm[x] = corner * w2 + side * w1 + mid[x] * w0;
+    const double a = fabs((mid[x] - sm[x]) / f);
+    gap[x] = first ? a : np_maximum(gap[x], a);
+  }
+}
+
+/* AdaptiveDCSmoothing (compressed_dc.cc:46-196) over a (3, h, w) float64
+ * DC, h, w > 2, into out: the NumPy body's operations in its order (no
+ * FMA contraction), a row at a time, the borders copied. Returns 0, or
+ * -1 without memory. */
+int adaptive_dc_smoothing(const double* dc, int h, int w, const double* fac,
+                          double* out) {
+  const size_t plane = (size_t)h * (size_t)w;
+  double* scratch = (double*)malloc(4 * (size_t)w * sizeof(double));
+  if (!scratch) return -1;
+  double* gap = scratch + 3 * (size_t)w;
+  for (int c = 0; c < 3; c++) {
+    const size_t last = c * plane + (size_t)(h - 1) * w;
+    memcpy(out + c * plane, dc + c * plane, (size_t)w * sizeof(double));
+    memcpy(out + last, dc + last, (size_t)w * sizeof(double));
+  }
+  for (int y = 1; y + 1 < h; y++) {
+    for (int c = 0; c < 3; c++) {
+      const double* up = dc + c * plane + (size_t)(y - 1) * w;
+      if (c == 0)
+        smooth_row(up, up + w, up + 2 * w, fac[c], w, 1, scratch, gap);
+      else
+        smooth_row(up, up + w, up + 2 * w, fac[c], w, 0,
+                   scratch + (size_t)c * w, gap);
+    }
+    for (int x = 1; x + 1 < w; x++)
+      gap[x] = np_maximum(0.0, -4.0 * np_maximum(0.5, gap[x]) + 3.0);
+    for (int c = 0; c < 3; c++) {
+      const double* restrict mid = dc + c * plane + (size_t)y * w;
+      const double* restrict sm = scratch + (size_t)c * w;
+      double* restrict o = out + c * plane + (size_t)y * w;
+      o[0] = mid[0];
+      for (int x = 1; x + 1 < w; x++)
+        o[x] = mid[x] + (sm[x] - mid[x]) * gap[x];
+      o[w - 1] = mid[w - 1];
+    }
+  }
+  free(scratch);
+  return 0;
+}
+
+#define ANS_MAX_ALPHABET_SIZE 256
+#define HISTO_MAX_LENGTH 258 /* a general histogram's 255 + 3 entries */
+
+/* the errors of the set's decode; entropy/decode.py names them */
+enum {
+  HISTO_OK = 0,
+  HISTO_SIMPLE_CORRUPT,
+  HISTO_BAD_SHIFT,
+  HISTO_INVALID,
+  HISTO_BAD_COUNT,
+  HISTO_ALPHABET_TOO_LARGE,
+  HISTO_TOO_LONG,
+  HISTO_SUM_MISMATCH,
+  HISTO_ALIAS_INVARIANT,
+  HISTO_TABLE_TOO_LARGE,
+};
+
+static inline uint32_t vbr_peek(BitReaderV* br, int n) {
+  if (br->bits < n) vbr_refill(br);
+  return (uint32_t)(br->buf & ((1ull << n) - 1));
+}
+
+static inline int read_varlen_u8(BitReaderV* br) {
+  if (!vbr_read(br, 1)) return 0;
+  int nbits = (int)vbr_read(br, 3);
+  if (nbits == 0) return 1;
+  return (int)vbr_read(br, nbits) + (1 << nbits);
+}
+
+/* ans_common.h:27-33 */
+static inline int population_count_precision(int logcount, int shift) {
+  int r = shift - ((ANS_LOG_TAB_SIZE - logcount) >> 1);
+  if (logcount < r) r = logcount;
+  return r > 0 ? r : 0;
+}
+
+/* the static Huffman code of the log counts, indexed by 7 peeked bits:
+ * (bits << 4) | value (dec_ans.cc:103-119) */
+static const uint8_t kLogCountHuff[128] = {
+    0x3a, 0x7c, 0x37, 0x43, 0x36, 0x38, 0x39, 0x45, 0x3a, 0x44, 0x37, 0x41,
+    0x36, 0x38, 0x39, 0x42, 0x3a, 0x50, 0x37, 0x43, 0x36, 0x38, 0x39, 0x45,
+    0x3a, 0x44, 0x37, 0x41, 0x36, 0x38, 0x39, 0x42, 0x3a, 0x6b, 0x37, 0x43,
+    0x36, 0x38, 0x39, 0x45, 0x3a, 0x44, 0x37, 0x41, 0x36, 0x38, 0x39, 0x42,
+    0x3a, 0x50, 0x37, 0x43, 0x36, 0x38, 0x39, 0x45, 0x3a, 0x44, 0x37, 0x41,
+    0x36, 0x38, 0x39, 0x42, 0x3a, 0x7d, 0x37, 0x43, 0x36, 0x38, 0x39, 0x45,
+    0x3a, 0x44, 0x37, 0x41, 0x36, 0x38, 0x39, 0x42, 0x3a, 0x50, 0x37, 0x43,
+    0x36, 0x38, 0x39, 0x45, 0x3a, 0x44, 0x37, 0x41, 0x36, 0x38, 0x39, 0x42,
+    0x3a, 0x6b, 0x37, 0x43, 0x36, 0x38, 0x39, 0x45, 0x3a, 0x44, 0x37, 0x41,
+    0x36, 0x38, 0x39, 0x42, 0x3a, 0x50, 0x37, 0x43, 0x36, 0x38, 0x39, 0x45,
+    0x3a, 0x44, 0x37, 0x41, 0x36, 0x38, 0x39, 0x42};
+
+/* ReadHistogram (dec_ans.cc:51-185), entropy/histogram.py read_histogram
+ * step for step: counts[0..*len) */
+static int read_histogram_c(BitReaderV* br, int32_t* counts, int* len) {
+  const int rng = ANS_TAB_SIZE;
+  if (vbr_read(br, 1)) { /* simple code */
+    int num_symbols = (int)vbr_read(br, 1) + 1;
+    int sym[2] = {0, 0};
+    for (int k = 0; k < num_symbols; k++) sym[k] = read_varlen_u8(br);
+    int maxsym = num_symbols == 2 && sym[1] > sym[0] ? sym[1] : sym[0];
+    *len = maxsym + 1;
+    memset(counts, 0, (size_t)*len * sizeof(int32_t));
+    if (num_symbols == 1) {
+      counts[sym[0]] = rng;
+    } else {
+      if (sym[0] == sym[1]) return HISTO_SIMPLE_CORRUPT;
+      counts[sym[0]] = (int32_t)vbr_read(br, ANS_LOG_TAB_SIZE);
+      counts[sym[1]] = rng - counts[sym[0]];
+    }
+    return HISTO_OK;
+  }
+  if (vbr_read(br, 1)) { /* flat: create_flat_histogram */
+    int n = read_varlen_u8(br) + 1;
+    *len = n;
+    for (int k = 0; k < n; k++) counts[k] = rng / n + (k < rng % n);
+    return HISTO_OK;
+  }
+  /* general: an Elias-gamma-like shift, then the log counts */
+  const int upper_bound_log = 3; /* floor(log2(ANS_LOG_TAB_SIZE + 1)) */
+  int log = 0;
+  while (log < upper_bound_log && vbr_read(br, 1)) log++;
+  int shift = (int)(vbr_read(br, log) | (1u << log)) - 1;
+  if (shift > ANS_LOG_TAB_SIZE + 1) return HISTO_BAD_SHIFT;
+  int length = read_varlen_u8(br) + 3;
+  uint8_t logcounts[HISTO_MAX_LENGTH];
+  int same[HISTO_MAX_LENGTH];
+  memset(logcounts, 0, sizeof(logcounts));
+  memset(same, 0, sizeof(same));
+  memset(counts, 0, (size_t)length * sizeof(int32_t));
+  int omit_log = -1, omit_pos = -1;
+  for (int i = 0; i < length;) {
+    uint8_t e = kLogCountHuff[vbr_peek(br, 7)];
+    (void)vbr_read(br, e >> 4);
+    int val = e & 15;
+    logcounts[i] = (uint8_t)val;
+    if (val == ANS_LOG_TAB_SIZE + 1) { /* RLE */
+      int rle_length = read_varlen_u8(br);
+      same[i] = rle_length + 5;
+      i += rle_length + 4;
+      continue;
+    }
+    if (val > omit_log) {
+      omit_log = val;
+      omit_pos = i;
+    }
+    i++;
+  }
+  if (omit_pos < 0) return HISTO_INVALID;
+  /* (read_histogram's check of logcounts[omit_pos + 1] against
+   * ANS_TAB_SIZE + 1 never holds: a log count is at most 13) */
+  int total = 0, prev = 0, numsame = 0;
+  for (int i = 0; i < length; i++) {
+    if (same[i]) {
+      numsame = same[i] - 1;
+      prev = i > 0 ? counts[i - 1] : 0;
+    }
+    if (numsame > 0) {
+      counts[i] = prev;
+      numsame--;
+    } else {
+      int code = logcounts[i];
+      if (i == omit_pos || code == 0) {
+        total += counts[i];
+        continue;
+      }
+      if (code == 1) {
+        counts[i] = 1;
+      } else {
+        int bitcount = population_count_precision(code - 1, shift);
+        counts[i] = (1 << (code - 1)) +
+                    (int32_t)(vbr_read(br, bitcount) << (code - 1 - bitcount));
+      }
+    }
+    total += counts[i];
+  }
+  counts[omit_pos] = rng - total;
+  if (counts[omit_pos] <= 0) return HISTO_BAD_COUNT;
+  *len = length;
+  return HISTO_OK;
+}
+
+/* InitAliasTable (ans_common.cc:55-158), entropy/alias.py
+ * init_alias_table step for step: dist[0..len) (trailing zeros allowed)
+ * into five rows of 1 << log_alpha_size entries, each `stride` apart:
+ * cutoff, right_value, freq0, offsets1, freq1. */
+static int init_alias_table_c(const int32_t* dist, int len,
+                              int log_alpha_size, uint16_t* out,
+                              size_t stride) {
+  const int rng = ANS_TAB_SIZE;
+  const int table_size = 1 << log_alpha_size;
+  if (table_size > rng) return HISTO_TABLE_TOO_LARGE;
+  while (len > 0 && dist[len - 1] == 0) len--;
+  const int32_t full[1] = {rng};
+  if (len == 0) {
+    dist = full;
+    len = 1;
+  }
+  if (len > table_size) return HISTO_TOO_LONG;
+  const int entry_size = rng >> log_alpha_size;
+  uint16_t* cutoff = out;
+  uint16_t* right = out + stride;
+  uint16_t* freq0 = out + 2 * stride;
+  uint16_t* offsets1 = out + 3 * stride;
+  uint16_t* freq1 = out + 4 * stride;
+  memset(cutoff, 0, (size_t)table_size * sizeof(uint16_t));
+  memset(right, 0, (size_t)table_size * sizeof(uint16_t));
+  memset(freq0, 0, (size_t)table_size * sizeof(uint16_t));
+  memset(offsets1, 0, (size_t)table_size * sizeof(uint16_t));
+  memset(freq1, 0, (size_t)table_size * sizeof(uint16_t));
+  int64_t sum = 0;
+  int single_symbol = -1;
+  for (int s = 0; s < len; s++) sum += dist[s];
+  if (sum != rng) return HISTO_SUM_MISMATCH;
+  for (int s = 0; s < len; s++)
+    if (dist[s] == ANS_TAB_SIZE) single_symbol = s;
+  if (single_symbol != -1) {
+    for (int i = 0; i < table_size; i++) {
+      right[i] = (uint16_t)single_symbol;
+      offsets1[i] = (uint16_t)(entry_size * i);
+      freq1[i] = ANS_TAB_SIZE;
+    }
+    return HISTO_OK;
+  }
+  int cutoffs[ANS_TAB_SIZE], underfull[ANS_TAB_SIZE], overfull[ANS_TAB_SIZE];
+  int n_under = 0, n_over = 0;
+  for (int i = 0; i < len; i++) {
+    cutoffs[i] = dist[i];
+    if (dist[i] > entry_size)
+      overfull[n_over++] = i;
+    else if (dist[i] < entry_size)
+      underfull[n_under++] = i;
+  }
+  for (int i = len; i < table_size; i++) {
+    cutoffs[i] = 0;
+    underfull[n_under++] = i;
+  }
+  while (n_over > 0) {
+    int over_i = overfull[--n_over];
+    if (n_under == 0) return HISTO_ALIAS_INVARIANT;
+    int under_i = underfull[--n_under];
+    int underfull_by = entry_size - cutoffs[under_i];
+    cutoffs[over_i] -= underfull_by;
+    right[under_i] = (uint16_t)over_i;
+    offsets1[under_i] = (uint16_t)cutoffs[over_i];
+    if (cutoffs[over_i] < entry_size)
+      underfull[n_under++] = over_i;
+    else if (cutoffs[over_i] > entry_size)
+      overfull[n_over++] = over_i;
+  }
+  for (int i = 0; i < table_size; i++) {
+    if (cutoffs[i] == entry_size) {
+      right[i] = (uint16_t)i;
+      offsets1[i] = 0;
+      cutoff[i] = 0;
+    } else {
+      offsets1[i] = (uint16_t)(offsets1[i] - cutoffs[i]);
+      cutoff[i] = (uint16_t)cutoffs[i];
+    }
+    freq0[i] = (uint16_t)(i < len ? dist[i] : 0);
+    int i1 = right[i];
+    freq1[i] = (uint16_t)(i1 < len ? dist[i1] : 0);
+  }
+  return HISTO_OK;
+}
+
+/* n alias tables in one call: dist row k holds lens[k] entries, rows
+ * dist_stride apart; out is (5, n, 1 << log_alpha_size). Returns 0, or
+ * 1 + k with *err set for the first table k that fails. */
+int init_alias_tables(const int32_t* dist, const int32_t* lens,
+                      int dist_stride, int n, int log_alpha_size,
+                      uint16_t* out, int* err) {
+  const size_t size = (size_t)1 << log_alpha_size;
+  for (int k = 0; k < n; k++) {
+    int rc = init_alias_table_c(dist + (size_t)k * dist_stride, lens[k],
+                                log_alpha_size, out + k * size, n * size);
+    if (rc) {
+      *err = rc;
+      return 1 + k;
+    }
+  }
+  return 0;
+}
+
+/* The ANS branch of DecodeHistograms (dec_ans.cc:336-370): n histograms
+ * read from *bitpos_io on, each checked and turned into its alias table
+ * before the next is read, as entropy/decode.py does. out is
+ * (5, n, 1 << log_alpha_size); degenerate[k] is the histogram's one
+ * symbol, or -1. Returns 0 (and the new bit position), or an error. */
+int decode_ans_histograms(const uint8_t* data, size_t size_bytes,
+                          uint64_t* bitpos_io, int n, int log_alpha_size,
+                          uint16_t* out, int32_t* degenerate) {
+  BitReaderV br;
+  vbr_init_at(&br, data, size_bytes, *bitpos_io);
+  const size_t size = (size_t)1 << log_alpha_size;
+  int32_t counts[HISTO_MAX_LENGTH];
+  for (int k = 0; k < n; k++) {
+    int len = 0;
+    int rc = read_histogram_c(&br, counts, &len);
+    if (rc) return rc;
+    if (len > ANS_MAX_ALPHABET_SIZE) return HISTO_ALPHABET_TOO_LARGE;
+    while (len > 0 && counts[len - 1] == 0) len--;
+    int deg = len > 0 ? len - 1 : 0;
+    for (int s = 0; s < deg; s++) {
+      if (counts[s] != 0) {
+        deg = -1;
+        break;
+      }
+    }
+    degenerate[k] = deg;
+    rc = init_alias_table_c(counts, len, log_alpha_size, out + k * size,
+                            n * size);
+    if (rc) return rc;
+  }
+  *bitpos_io = ((uint64_t)br.pos << 3) - (uint64_t)br.bits;
+  return HISTO_OK;
 }

@@ -42,6 +42,8 @@ import functools
 
 import numpy as np
 
+from ..entropy.alias import stacked_alias_fields
+
 ANS_LOG = 12
 ANS_SIGNATURE = 0x13 << 16
 MARKER = 1 << 30          # tape flag: chain-start (nzeros) step
@@ -104,13 +106,8 @@ def _pack_alias_tables(code, context_map):
     max_nbits = 0
     w1 = w2 = np.zeros(0, np.int64)
     if n:
-        def field(name):                     # (n, size), table by table
-            return np.stack([np.asarray(getattr(t, name))
-                             for t in tables]).astype(np.int64)
-
-        cutoff, right, freq0, off1, freq1 = (
-            field(f) for f in ("cutoff", "right_value", "freq0",
-                               "offsets1", "freq1"))
+        cutoff, right, freq0, off1, freq1 = stacked_alias_fields(
+            tables, las).astype(np.int64)
         cfgs = code.uint_config[:n]
         se, msb, lsb = (np.array([getattr(c, a) for c in cfgs], np.int64)
                         for a in ("split_exponent", "msb_in_token",

@@ -28,7 +28,8 @@ import sys
 
 import numpy as np
 
-from ..base.device import add_device_args, cli_device, launch_counts
+from ..base.device import (add_device_args, cli_device,
+                           kernel_launch_counts)
 from ..base.status import JXLError
 
 
@@ -250,7 +251,7 @@ def run(target: str, iters: int, seed: int, max_len: int = 4096,
                 base[int(rng.integers(0, len(base)))] = int(
                     rng.integers(0, 256))
             data = bytes(base)
-        launched = sum(launch_counts().values())
+        launched = sum(kernel_launch_counts().values())
         stats["inputs"] += 1
         try:
             fn(data)
@@ -262,7 +263,7 @@ def run(target: str, iters: int, seed: int, max_len: int = 4096,
             else:
                 stats["rejected"] += 1
         finally:
-            if sum(launch_counts().values()) > launched:
+            if sum(kernel_launch_counts().values()) > launched:
                 stats["reached_kernel"] += 1
     return findings
 

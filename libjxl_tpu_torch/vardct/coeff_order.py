@@ -17,7 +17,7 @@ from ..entropy.encode import build_and_encode_histograms, write_tokens
 from ..entropy.hybrid_uint import PERMUTATION_UINT_CONFIG
 from ..entropy.permutation import (
     PERMUTATION_CONTEXTS,
-    read_permutation,
+    read_permutations,
     tokenize_permutation,
 )
 from ..base.status import JXLError
@@ -47,15 +47,16 @@ def decode_coeff_orders(used_orders: int, r: BitReader) -> dict:
         return orders
     code, cmap = decode_histograms(r, PERMUTATION_CONTEXTS)
     reader = ANSSymbolReader(code, r)
-    for ord_, o in _first_strategy_per_order():
-        if (used_orders & (1 << ord_)) == 0:
-            continue
-        cb = acs.COVERED_X[o] * acs.COVERED_Y[o]
-        size = 64 * cb
+    used = [(ord_, o) for ord_, o in _first_strategy_per_order()
+            if used_orders & (1 << ord_)]
+    cbs = [acs.COVERED_X[o] * acs.COVERED_Y[o] for _, o in used]
+    perms = iter(read_permutations(
+        [(cb, 64 * cb) for cb in cbs for _ in range(3)], r, reader, cmap))
+    for ord_, o in used:
         natural = acs.natural_coeff_order(o)
         for c in range(3):
-            perm = read_permutation(cb, size, r, reader, cmap)
-            orders[(ord_, c)] = natural[np.asarray(perm, dtype=np.int64)]
+            orders[(ord_, c)] = natural[np.asarray(next(perms),
+                                                   dtype=np.int64)]
     if not reader.check_final_state():
         raise JXLError("invalid ANS stream in coefficient orders")
     return orders

@@ -320,23 +320,18 @@ def decode_vardct_strips(r: BitReader, fh, num_threads: int = 0,
         CT_YCBCR,
         FLAG_NOISE,
         FLAG_PATCHES,
-        FLAG_SKIP_ADAPTIVE_DC_SMOOTHING,
         FLAG_SPLINES,
         FLAG_USE_DC_FRAME,
     )
     from ..io.toc import read_group_offsets
     from .frame import (
-        ORDER_ENC,
         VarDCTState,
-        adaptive_dc_smoothing,
+        decode_ac_global,
         decode_ac_group,
         decode_cmap_dc,
         decode_dc_group,
         read_block_ctx_map,
     )
-    from ..entropy.decode import decode_histograms
-    from ..io.fields import u32_read
-    from .coeff_order import decode_coeff_orders
 
     m = fh.nonserialized_metadata.m
     subsampled = (fh.color_transform == CT_YCBCR
@@ -427,38 +422,18 @@ def decode_vardct_strips(r: BitReader, fh, num_threads: int = 0,
         decode_modular_group(sr, fh, fd, mstate, rect, 3, 1000,
                              modular_dc_stream_id(fd, g))
 
-    def ac_global(sr):
-        if not (fh.flags & FLAG_SKIP_ADAPTIVE_DC_SMOOTHING):
-            fac = [state.quantizer.mul_dc(c) for c in range(3)]
-            state.dc = adaptive_dc_smoothing(state.dc, fac)
-        state.matrices.decode(sr, num_dc_groups=fd.num_dc_groups,
-                              global_tree=state.tree,
-                              global_code=state.code,
-                              global_ctx_map=state.context_map)
-        nbits = (fd.num_groups - 1).bit_length() if fd.num_groups > 1 \
-            else 0
-        state.num_histograms = 1 + (sr.read_bits(nbits) if nbits else 0)
-        for _ in range(num_passes):  # per-pass orders + histograms
-            used_orders = u32_read(ORDER_ENC, sr)
-            state.orders.append(decode_coeff_orders(used_orders, sr))
-            num_contexts = (state.num_histograms
-                            * state.block_ctx_map.num_ac_contexts())
-            code, cmap = decode_histograms(sr, num_contexts)
-            state.ac_code.append(code)
-            state.ac_context_map.append(cmap)
-
     single = fd.num_groups == 1 and num_passes == 1
     if single:
         sr = section_reader(0)
         dc_global(sr)
         dc_group(0, sr)
-        ac_global(sr)
+        decode_ac_global(sr, state)
         row_reader = {0: sr}
     else:
         dc_global(section_reader(0))
         for g in range(fd.num_dc_groups):
             dc_group(g, section_reader(1 + g))
-        ac_global(section_reader(1 + fd.num_dc_groups))
+        decode_ac_global(section_reader(1 + fd.num_dc_groups), state)
         row_reader = None
 
     lf = fh.loop_filter

@@ -153,7 +153,8 @@ def test_render_tail_kernel_matches_plain(cuda, epf_iters, gab, size):
 def test_decode_batch_on_card_matches_cpu(cuda):
     """The slice on real streams: the card's render (both kernels) within
     one u8 step of the CPU's (the plain twins), one dequant_idct8 and one
-    render_tail launch per batch."""
+    render_tail launch per batch, each frame's AC-global section read in
+    C."""
     from libjxl_tpu_torch.api import codestream, tpu_codec
     from libjxl_tpu_torch.base.device import launch_counts
 
@@ -166,7 +167,7 @@ def test_decode_batch_on_card_matches_cpu(cuda):
     after = launch_counts()
     assert {k: after[k] - before.get(k, 0) for k in after
             if after[k] != before.get(k, 0)} == {
-        "dequant_idct8": 1, "render_tail": 1}
+        "dequant_idct8": 1, "render_tail": 1, "ac_global_native": 2}
     for g, c in zip(got, tpu_codec.decode_batch(streams, "cpu")):
         assert g.shape == c.shape == (100, 132, 3)
         assert np.abs(g.astype(int) - c.astype(int)).max() <= 1
@@ -214,7 +215,7 @@ def test_decode_on_card_matches_cpu(cuda, shape, path):
                             decode_info=info)
     ref, _ = codestream.decode(data, device="cpu", decode_info=cinfo)
     assert info["path"] == cinfo["path"] == path
-    assert n == {"dequant_idct8": 1, "render_tail": 1}
+    assert n == {"dequant_idct8": 1, "render_tail": 1, "ac_global_native": 1}
     assert got.shape == ref.shape
     assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
 
@@ -234,7 +235,7 @@ def test_decode_ycbcr_on_card_matches_cpu(cuda):
                             decode_info=info)
     ref, _ = codestream.decode(data, device="cpu")
     assert info["path"] == "device:u8-ycbcr"
-    assert n == {"render_tail": 1}
+    assert n == {"render_tail": 1, "ac_global_native": 1}
     assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
 
 
@@ -258,7 +259,7 @@ def test_decode_transcode_on_card_matches_the_plain_reference(cuda):
     (got, _), n = _launched(codestream.decode, data, device=cuda,
                             decode_info=info, num_threads=4)
     assert info["path"] == "device:u8-ycbcr"
-    assert n == {"render_tail": 1, "ac_native_sub": 1}
+    assert n == {"render_tail": 1, "ac_native_sub": 1, "ac_global_native": 1}
     want = jpeg_transcode_ref.decode_parsed(parse_jpeg(jpg))
     d = np.abs(got.astype(int) - want.astype(int))
     assert d.max() <= 1 and (d != 0).mean() < 1e-3
@@ -321,7 +322,7 @@ def test_decode_filtered_ycbcr_on_card_matches_cpu(cuda, shape):
                             decode_info=info)
     ref, _ = codestream.decode(data, device="cpu", decode_info=cinfo)
     assert info["path"] == cinfo["path"] == "device:u8-ycbcr"
-    assert n == {"render_tail": 1}
+    assert n == {"render_tail": 1, "ac_global_native": 1}
     assert got.shape == ref.shape == (*shape, 3)
     assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
 
@@ -453,7 +454,8 @@ def test_decode_batch_entropy_on_card_matches_cpu(cuda):
     assert info == {"path": "device_entropy"}
     assert {k: after[k] - before.get(k, 0) for k in after
             if after[k] != before.get(k, 0)} == {
-        "ans_decode": 1, "dequant_idct8": 1, "render_tail": 1}
+        "ans_decode": 1, "dequant_idct8": 1, "render_tail": 1,
+        "ac_global_native": 2}
     cpu, cinfo = tpu_codec.decode_batch_entropy(streams, "cpu")
     assert cinfo == {"path": "device_entropy"}
     for g, b, c in zip(got, tpu_codec.decode_batch(streams, cuda), cpu):
@@ -581,7 +583,8 @@ def test_decode_rows_on_card_matches_cpu(cuda, shape):
     rows, n = _launched(lambda: list(codestream.decode_rows(data,
                                                             device=cuda)))
     assert all(r.dtype == np.uint8 for _, r in rows)
-    assert n == {"dequant_idct8": len(rows), "render_tail": len(rows)}
+    assert n == {"dequant_idct8": len(rows), "render_tail": len(rows),
+                 "ac_global_native": 1}
     got = np.concatenate([r for _, r in rows], axis=0)
     cpu = np.concatenate([r for _, r in codestream.decode_rows(
         data, device="cpu")], axis=0)
@@ -709,7 +712,7 @@ def test_sharded_stream_render_and_serving_decode_on_a_virtual_mesh(cuda):
         np.clip(rng.normal(120, 30, (96, 136, 3)), 0, 255).astype(np.uint8),
         distance=1.0, effort=3, device=None) for _ in range(4)]
     outs, n = _launched(tpu_codec.decode_batch_sharded, streams, mesh)
-    assert n == {"dequant_idct8": 4, "render_tail": 4}
+    assert n == {"dequant_idct8": 4, "render_tail": 4, "ac_global_native": 4}
     for g, r in zip(outs, tpu_codec.decode_batch(streams, cuda)):
         np.testing.assert_array_equal(g, r)
 
@@ -727,7 +730,8 @@ def test_djxl_on_card_renders_through_the_kernels(cuda, tmp_path):
                                             distance=1.0, effort=5,
                                             device=None))
     rc, n = _launched(djxl.main, [str(src), str(tmp_path / "card.ppm")])
-    assert rc == 0 and n == {"dequant_idct8": 1, "render_tail": 1}
+    assert rc == 0 and n == {"dequant_idct8": 1, "render_tail": 1,
+                             "ac_global_native": 1}
     assert djxl.main([str(src), str(tmp_path / "host.ppm"), "--host"]) == 0
     got = load_image(tmp_path / "card.ppm").astype(int)
     assert np.abs(got - load_image(tmp_path / "host.ppm")).max() <= 1
@@ -793,10 +797,10 @@ def test_conformance_check_on_card(cuda, tmp_path):
         rc, n = _launched(conformance.main,
                           ["check", str(tmp_path / "corpus"), "-v"])
     assert rc == 0 and "3/3 cases pass" in out.getvalue()
-    assert n == {"dequant_idct8": 2, "render_tail": 2}
+    assert n == {"dequant_idct8": 2, "render_tail": 2, "ac_global_native": 2}
     rc, n = _launched(conformance.main, ["check", str(tmp_path / "corpus"),
                                          "--host"])
-    assert rc == 0 and n == {}
+    assert rc == 0 and n == {"ac_global_native": 2}
 
 
 def _block_inputs(seed, b, nby, nbx):
@@ -1171,7 +1175,8 @@ def _builder_cases(devices):
             dm_t[1], np.array([512.0, 64.0, 32.0], np.float32)), {}),
         "sharded_chunk": (sharding.make_sharded_chunk_step(rows), (
             xyb, dm_inv, dm_t, 8.716, 19.0, 1.0, 1.0, step_qf), {}),
-        "batch": (tpu_codec.decode_batch_sharded, (streams, rows), k1k2),
+        "batch": (tpu_codec.decode_batch_sharded, (streams, rows),
+                  dict(k1k2, ac_global_native=4)),
     }
 
 
