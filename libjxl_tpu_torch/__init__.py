@@ -20,7 +20,7 @@ decode, decode_frames and decode_batch, device=None: the host decode).
   api/tpu_codec.py    batched VarDCT serving decode, host or device
                       entropy; the single-image render (make_device_render)
   probes/gather.py    the TPU gather probes S1-S6 as CUDA kernels + twins
-  probes/prof_kernel.py  S7: K3's stream-copy floor, the entropy profile
+  probes/prof_kernel.py  S7: K3's stream-copy floor
 """
 
 __version__ = "0.1.0"

@@ -3,10 +3,9 @@ libjxl_tpu/api/tpu_codec.py's decode_tpu_batch, decode_tpu_batch_entropy,
 single-image decode and encode_lossy_tpu paths).
 
 N same-geometry, all-DCT8, XYB streams are entropy-decoded on the host by
-the port's copy of the host decoder (prepare_batch), staged as one batch
-(batch_from_numpy), and rendered by one BatchRenderer call of two
-kernels: dequant + IDCT8 (dequant_idct8), then Gaborish -> EPF passes ->
-sRGB u8 (render_tail).
+the port's copy of the host decoder (prepare_batch), staged as one batch,
+and rendered by render_batch in two kernels: dequant + IDCT8
+(dequant_idct8), then Gaborish -> EPF passes -> sRGB u8 (render_tail).
 decode_pipelined overlaps the host entropy of batch k+1 with the render
 and readback of batch k; decode_batch_sharded splits one batch over the
 devices of a mesh (parallel/sharding.Mesh), one render a device.
@@ -29,27 +28,25 @@ on the device and the entropy coding on the host.
 
 Each device step is a program (ops/programs.py, a cached CUDA graph, the
 counterpart of the JAX package's jitted programs): "batch" (_render,
-the JAX _BATCH_PROGS), "entropy" (decode_batch_entropy, _ENTROPY_PROGS),
+the JAX _BATCH_PROGS; decode_batch, decode_pipelined and each device of
+decode_batch_sharded), "entropy" (decode_batch_entropy, _ENTROPY_PROGS),
 "dec_image" (render_image, _jitted().dec_image), "dec_sub"
 (_render_subsampled_device, _jitted_sub) and "enc" (encode_lossy_tpu,
-_jitted().enc with srgb2lin). BatchRenderer and decode_batch_sharded
-stay eager, and so does a call with a timing hook.
+_jitted().enc with srgb2lin).
 
 Nothing here probes or imports JAX: the host layers it calls
 (codestream header parsing, decode_vardct_frame, render.pipeline
-helpers, the ops/ans_tpu plan builder) are the port's own copies of the
-JAX package's NumPy and C host layers.
+helpers, the lane plan of ops/ans_kernel.lane_plan_from_sections) are
+the port's own copies of the JAX package's NumPy and C host layers.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
 import dataclasses
-import time
 
 import numpy as np
 import torch
-from torch import nn
 
 from ..base.device import resolve_device, span, spanned
 from ..base.status import JXLError
@@ -191,19 +188,9 @@ def prepare_batch(streams, num_threads: int = 0):
                 raise JXLError("batch decode: mixed geometry")
             if np.any(st.strategy[st.is_origin] != acs.DCT):
                 raise JXLError("batch decode: non-DCT8 strategies")
-            if getattr(st, "qimg", None) is None:
-                if not st.qblocks:
-                    raise JXLError("batch decode: no coefficients")
-                # single-group streams skip the bulk entropy path: assemble
-                # the dense image from the per-block dict
-                nby_, nbx_ = fd.ysize_blocks, fd.xsize_blocks
-                plane5 = np.zeros((3, nby_, 8, nbx_, 8), dtype=np.int32)
-                keys = np.array(list(st.qblocks.keys()), dtype=np.int64)
-                vals = np.stack([np.asarray(v) for v in
-                                 st.qblocks.values()]).astype(np.int32)
-                plane5[:, keys[:, 0], :, keys[:, 1], :] = \
-                    vals.reshape(-1, 3, 8, 8)
-                st.qimg = plane5.reshape(3, nby_ * 8, nbx_ * 8)
+            if getattr(st, "qimg", None) is None and not st.qblocks:
+                raise JXLError("batch decode: no coefficients")
+            _dense_qimg(st)
             _check_render_scope(st, fh, states[0], fhs[0], dm0)
         qimg = np.stack([st.qimg for st in states])
         if np.abs(qimg).max() < (1 << 15):
@@ -219,9 +206,9 @@ def prepare_batch_entropy(streams):
     prepare_tpu_batch_entropy): headers, DC and AC metadata are decoded
     here, and the AC groups' raw rANS sections are laid out for the
     device straight from the sections (ops/ans_kernel.
-    lane_plan_from_sections, the card's route; the oracle route,
-    ops/ans_tpu.build_plan then ans_kernel.build_lane_plan, builds the same
-    LanePlan with per-chain metadata for the NumPy simulator).
+    lane_plan_from_sections; the tests hold it to the oracle route,
+    ops/ans_tpu.build_plan then ans_kernel.build_lane_plan, which builds
+    the same LanePlan with per-chain metadata for the NumPy simulator).
 
     Returns (config, render_args, lane_plan); render_args are
     prepare_batch's arrays without qimg: (qf, dc, ytox, ytob, igs, isp,
@@ -250,82 +237,24 @@ def prepare_batch_entropy(streams):
     return config, render_args, lane_plan
 
 
-class BatchRenderer(nn.Module):
-    """Render a staged batch to sRGB u8 [B, H, W, 3] (block-padded).
-
-    The counterpart of the JAX path's vmapped `one` closure: the tables
-    the batch shares (dequant matrices, Gaborish kernels, SAD multiplier
-    map) are buffers, and the batch dimension is written out."""
-
-    def __init__(self, config: BatchConfig, dm, gab_kernels, sad_mul):
-        super().__init__()
-        self.config = config
-        self.register_buffer("dm", torch.as_tensor(dm, dtype=torch.float32))
-        self.register_buffer("gab_kernels",
-                             torch.as_tensor(gab_kernels,
-                                             dtype=torch.float32))
-        self.register_buffer("sad_mul",
-                             torch.as_tensor(sad_mul, dtype=torch.float32))
-
-    def forward(self, qimg, qf, dc, ytox, ytob, inv_global_scale,
-                inv_sigma, mark=None):
-        return render_batch(qimg, qf, dc, ytox, ytob, inv_global_scale,
-                            inv_sigma, self.dm, self.gab_kernels,
-                            self.sad_mul, config=self.config, mark=mark)
-
-
 def render_batch(qimg, qf, dc, ytox, ytob, inv_global_scale, inv_sigma, dm,
-                 gab_kernels, sad_mul, config: BatchConfig, mark=None):
-    """The batch render, sRGB u8 [B, H, W, 3]: BatchRenderer.forward's
-    body, and the body of the "batch" program (the JAX path's
-    _BATCH_PROGS) that _render runs; gab_kernels is read when config.gab
-    is set."""
+                 gab_kernels, sad_mul, config: BatchConfig):
+    """The batch render, sRGB u8 [B, H, W, 3] (block-padded): the body of
+    the "batch" program (the JAX path's _BATCH_PROGS) that _render runs,
+    and of the "entropy" program after the placement; gab_kernels is read
+    when config.gab is set."""
     c = config
     return pipeline.decode_render_image(
         qimg, qf, dc, ytox, ytob, dm, inv_global_scale, c.x_dm_mult,
         c.b_dm_mult, gab_kernels if c.gab else None, inv_sigma, sad_mul,
         c.channel_scale, c.epf_iters, to_rgb="u8srgb",
         pass0_sigma_scale=c.pass0_sigma_scale,
-        pass2_sigma_scale=c.pass2_sigma_scale, true_size=c.true_size,
-        mark=mark)
+        pass2_sigma_scale=c.pass2_sigma_scale, true_size=c.true_size)
 
 
 def batch_key(config: BatchConfig, batch: int) -> tuple:
     """The "batch" program's key: the JAX path's _BATCH_PROGS key."""
     return (batch, *config.key)
-
-
-def batch_from_numpy(args, config: BatchConfig, device="cuda"):
-    """The numpy arguments of prepare_batch (or of the JAX path's
-    prepare_tpu_batch, which are the same arrays) as a renderer and its
-    inputs on `device`: `renderer(*inputs)` renders the batch. qimg may
-    be a tensor already (the device-entropy path places it on the
-    device)."""
-    dev = resolve_device(device)
-    qimg, qf, dc, ytox, ytob, igs, isp, dm, gabk, sad = args
-    renderer = BatchRenderer(config, dm, gabk, sad).to(dev)
-    inputs = tuple(a.to(dev) if torch.is_tensor(a)
-                   else torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-                   for a in (qimg, qf, dc, ytox, ytob, igs, isp))
-    return renderer, inputs
-
-
-class _Laps:
-    """Host-clock seconds of a path's stages, written into `stages`: each
-    call ends the stage begun by the previous one (or by construction),
-    after synchronizing the device, so a device stage is timed to its
-    end. Called as lap(stage) or as a program body's mark(stage, value)."""
-
-    def __init__(self, stages: dict, dev):
-        self.stages, self.dev = stages, dev
-        self.t = time.perf_counter()
-
-    def __call__(self, name: str, _value=None):
-        if self.dev.type == "cuda":
-            torch.cuda.synchronize(self.dev)
-        t = time.perf_counter()
-        self.stages[name] = t - self.t
-        self.t = t
 
 
 def _crop(config: BatchConfig, u8) -> list:
@@ -446,28 +375,15 @@ def entropy_key(config: BatchConfig, lp) -> tuple:
     return (lp.B, *config.key, *ans_kernel.program_key(lp))
 
 
-# decode_batch_entropy's stages, in order (the keys of its `stages`)
-ENTROPY_STAGES = ("host parse + plan + lane plan",
-                  "upload of the lane plan and the render arrays",
-                  "ans_decode", "place", "render", "readback")
-
-
 def _entropy_program(lanes, inv_order, render_args, geometry, las, t_alloc,
-                     config, mark=None):
+                     config):
     """The device-entropy batch in one program (the JAX path's
     _ENTROPY_PROGS form): K3 over the whole t_alloc tape, its placement,
-    the batch render. Returns (u8 [B, H, W, 3], ok bool[L]). mark, a
-    timing hook, is called at the end of each stage (ENTROPY_STAGES)."""
-    mark = mark or (lambda stage, value: None)
-    mark("upload of the lane plan and the render arrays", lanes)
+    the batch render. Returns (u8 [B, H, W, 3], ok bool[L])."""
     lt = ans_kernel.LaneTensors(**lanes, las=las, t_alloc=t_alloc)
     tape, ok, _ = kernels.ans_decode(lt)
-    mark("ans_decode", tape)
     qimg = ans_kernel.place(tape, geometry, inv_order)
-    mark("place", qimg)
-    u8 = render_batch(qimg, *render_args, config=config)
-    mark("render", u8)
-    return u8, ok
+    return render_batch(qimg, *render_args, config=config), ok
 
 
 def _not_ok(ok) -> None:
@@ -480,8 +396,7 @@ def _not_ok(ok) -> None:
 
 
 @spanned("jxl.decode_batch_entropy")
-def decode_batch_entropy(streams, device="cuda",
-                         stages: dict | None = None):
+def decode_batch_entropy(streams, device="cuda"):
     """Batch decode with the AC entropy decode on `device` (the port of
     decode_tpu_batch_entropy). Returns (images, info): uint8 (H, W, 3)
     images in input order, and info["path"] == "device_entropy".
@@ -493,10 +408,7 @@ def decode_batch_entropy(streams, device="cuda",
     tape into qimg (ans_kernel.place), which never leaves the device, and
     the batch render (dequant_idct8 + render_tail); then one readback of
     the images and the lanes' ok flags. Batches of one geometry and one
-    encoder setting share the program. A dict `stages` gets each of
-    ENTROPY_STAGES' host-clock seconds, the program's body run eagerly
-    with the device synchronized at each stage's end (which costs the
-    path its overlap, so time the end-to-end rate without it).
+    encoder setting share the program.
 
     Streams outside the device kernel's scope fall back, before anything
     is uploaded, to decode_batch with info["path"] == "host_entropy" and
@@ -505,22 +417,17 @@ def decode_batch_entropy(streams, device="cuda",
     the lanes; the batch is not decoded again on the host. A kernel that
     fails to build or launch raises."""
     dev = resolve_device(device)
-    lap = None if stages is None else _Laps(stages, dev)
     try:
         config, render_args, lane_plan = prepare_batch_entropy(streams)
     except JXLError as e:
         return _host_fallback(streams, dev, str(e))
     with span("jxl.entropy.plan"):
         lp = ans_kernel.program_plan(lane_plan)
-    if lap is not None:
-        lap("host parse + plan + lane plan")
     u8, ok = programs.run(
         "entropy", entropy_key(config, lp), _entropy_program, lp.arrays(),
         lp.inv_order, render_args, geometry=ans_kernel.Geometry.of(lp),
         las=lp.las, t_alloc=lp.t_alloc, config=config, device=dev,
-        readback=True, mark=lap)
-    if lap is not None:
-        lap("readback")
+        readback=True)
     _not_ok(ok)
     return _crop(config, u8), {"path": "device_entropy"}
 
@@ -666,17 +573,27 @@ def _qblocks_from_qimg(state):
 def _dense_qimg(state) -> None:
     """state.qimg, the dense coefficient image: when the bulk entropy path
     did not run (small image / lz77 / prefix streams), assembled from the
-    per-block dict."""
+    per-block dict. The one-cell blocks (every block of an all-DCT8
+    frame) land in one scatter, the larger transforms one by one."""
     if getattr(state, "qimg", None) is not None:
         return
-    fd = state.fd
-    state.qimg = np.zeros((3, fd.ysize_blocks * 8, fd.xsize_blocks * 8),
-                          dtype=np.int32)
+    nby, nbx = state.fd.ysize_blocks, state.fd.xsize_blocks
+    plane5 = np.zeros((3, nby, 8, nbx, 8), dtype=np.int32)
+    qimg = plane5.reshape(3, nby * 8, nbx * 8)
+    ones, ys, xs = [], [], []
     for (by, bx), blk in state.qblocks.items():
         s = int(state.strategy[by, bx])
         cx, cy = acs.COVERED_X[s], acs.COVERED_Y[s]
-        state.qimg[:, by * 8:(by + cy) * 8, bx * 8:(bx + cx) * 8] = \
-            np.asarray(blk).reshape(3, cy * 8, cx * 8)
+        if cx == cy == 1:
+            ones.append(np.asarray(blk))
+            ys.append(by)
+            xs.append(bx)
+        else:
+            qimg[:, by * 8:(by + cy) * 8, bx * 8:(bx + cx) * 8] = \
+                np.asarray(blk).reshape(3, cy * 8, cx * 8)
+    if ones:
+        plane5[:, ys, :, xs, :] = np.stack(ones).reshape(-1, 3, 8, 8)
+    state.qimg = qimg
 
 
 @spanned("jxl.stage")
@@ -729,32 +646,19 @@ _IMAGE_ARGS = ("qimg", "qf", "dc", "ytox_map", "ytob_map", "dm",
                "inv_sigma", "sad_mul", "channel_scale", "epf_iters")
 
 
-def _image_program(mark=None, **named):
-    """The "dec_image" program's body: pipeline.decode_render_image on
-    render_image's arguments, by name. mark, a timing hook, is called as
-    mark("upload", (args, kwargs)) as the body begins, with its inputs on
-    the device as decode_render_image's positional and keyword arguments,
-    then by decode_render_image at the end of each of its stages."""
-    if mark is not None:
-        mark("upload", (tuple(named[k] for k in _IMAGE_ARGS),
-                        {k: v for k, v in named.items()
-                         if k not in _IMAGE_ARGS}))
-    return pipeline.decode_render_image(**named, mark=mark)
-
-
-def render_image(args, kw, device, mark=None):
+def render_image(args, kw, device):
     """pipeline.decode_render_image(*args, **kw) through the "dec_image"
     program (the JAX package's jitted dec_image) on `device`, read back
     as numpy: the single-image render of make_device_render and the
     strips of vardct/low_memory. args and kw as stage_image gives them
     (numpy arrays, the program's inputs; inv_global_scale goes in as one
-    f32 of data, as the JAX program takes it). mark: _image_program's
-    timing hook; the body then runs eagerly."""
+    f32 of data, as the JAX program takes it)."""
     named = dict(zip(_IMAGE_ARGS, args), **kw)
     named["inv_global_scale"] = np.asarray(named["inv_global_scale"],
                                            dtype=np.float32)
-    return programs.run("dec_image", image_key(named), _image_program,
-                        device=device, readback=True, mark=mark, **named)
+    return programs.run("dec_image", image_key(named),
+                        pipeline.decode_render_image, device=device,
+                        readback=True, **named)
 
 
 def _render_subsampled_device(state, fh, out, dev) -> bool:
@@ -930,9 +834,6 @@ def decode(data: bytes, device="cuda"):
 
 # ------------------------------------------------------------------ encode
 K_AC_QUANT = 0.79
-# encode_lossy_tpu's stages, in order (the names its mark hook gets)
-ENCODE_STAGES = ("host setup", "upload", "srgb2lin", "encode step",
-                 "readback", "entropy coding")
 
 
 def enc(rgb, dm_inv, dm, inv_global_scale, base_quant, x_dm_mult,
@@ -957,27 +858,18 @@ def enc(rgb, dm_inv, dm, inv_global_scale, base_quant, x_dm_mult,
 
 
 def _encode_program(srgb, dm_inv, dm, inv_global_scale, base_quant,
-                    x_dm_mult, b_dm_mult, adaptive, cfl, gab, distance,
-                    mark=None):
+                    x_dm_mult, b_dm_mult, adaptive, cfl, gab, distance):
     """The "enc" program: the JAX package's jitted srgb2lin, then its
-    jitted enc, on sRGB f32[3, H, W]. mark, a timing hook, is called at
-    the end of its stages (ENCODE_STAGES' upload, srgb2lin, encode
-    step)."""
-    mark = mark or (lambda stage, value: None)
-    mark("upload", srgb)
-    rgb = pipeline.srgb2lin(srgb)
-    mark("srgb2lin", rgb)
-    out = enc(rgb, dm_inv, dm, inv_global_scale, base_quant, x_dm_mult,
-              b_dm_mult, adaptive=adaptive, cfl=cfl, gab=gab,
-              distance=distance)
-    mark("encode step", out)
-    return out
+    jitted enc, on sRGB f32[3, H, W]."""
+    return enc(pipeline.srgb2lin(srgb), dm_inv, dm, inv_global_scale,
+               base_quant, x_dm_mult, b_dm_mult, adaptive=adaptive, cfl=cfl,
+               gab=gab, distance=distance)
 
 
 def encode_lossy_tpu(image: np.ndarray, distance: float = 1.0,
                      adaptive_quant: bool = True, cfl: bool = True,
                      gaborish: bool = None, epf: int = None,
-                     device="cuda", mark=None) -> bytes:
+                     device="cuda") -> bytes:
     """Encode an sRGB uint8 (H, W, 3) image lossily with the encode step
     on `device` ("cuda" by default; a missing card raises; "cpu" runs the
     same torch ops on the CPU). Returns a bare JPEG XL codestream (DCT8
@@ -985,12 +877,7 @@ def encode_lossy_tpu(image: np.ndarray, distance: float = 1.0,
     overrides (None = encoder defaults). The device step is the "enc"
     program (srgb2lin and the encode step, its key the JAX package's
     static arguments (adaptive, cfl, gab, distance); the scalars, which
-    its torch ops take by value, in the program's key too). mark, when
-    given, is called as mark(stage, value) at the end of each of
-    ENCODE_STAGES with the stage's output (a timing hook), and the
-    program's body runs eagerly."""
-    hook = mark
-    mark = mark or (lambda stage, value: None)
+    its torch ops take by value, in the program's key too)."""
     from ..io.frame_header import CT_XYB, ENC_VARDCT, FT_REGULAR
     from ..io.headers import CodecMetadata, SizeHeader
     from ..vardct.ctx import QUANT_MAX
@@ -1048,7 +935,6 @@ def encode_lossy_tpu(image: np.ndarray, distance: float = 1.0,
     x_dm_mult = (1 / 1.25) ** (fh.x_qm_scale - 2.0)
     b_dm_mult = (1 / 1.25) ** (fh.b_qm_scale - 2.0)
 
-    mark("host setup", srgb)
     scalars = (f32(quantizer.inv_global_scale), f32(base_quant),
                f32(x_dm_mult), f32(b_dm_mult))
     statics = dict(adaptive=adaptive_quant, cfl=cfl,
@@ -1057,9 +943,8 @@ def encode_lossy_tpu(image: np.ndarray, distance: float = 1.0,
     host = programs.run(
         "enc", tuple(statics.values()), _encode_program,
         np.ascontiguousarray(srgb), dm_inv, dm, *scalars, **statics,
-        device=dev, readback=True, mark=hook)
+        device=dev, readback=True)
     qimg, nz, dc, qf, ytox, ytob, sharp = host
-    mark("readback", host)
     precomputed = {
         "quant_median": quant_median if adaptive_quant else quant_ac,
         "qimg": qimg, "nz": nz, "dc": dc, "qf": qf, "ytox_map": ytox,
@@ -1067,6 +952,4 @@ def encode_lossy_tpu(image: np.ndarray, distance: float = 1.0,
     encode_vardct_frame(writer, None, fh, distance=distance,
                         precomputed=precomputed,
                         dc_distance=public_distance)
-    data = writer.get_bytes()
-    mark("entropy coding", data)
-    return data
+    return writer.get_bytes()

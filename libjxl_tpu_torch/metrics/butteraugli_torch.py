@@ -10,8 +10,7 @@ The separable blurs are two products with a dense banded, row-normalised
 matrix (B_y @ img @ B_x^T), fp32 with TF32 off (base/device.py), a
 per-device constant of ops/programs.py per (n, sigma). The Malta filters
 are shifted adds on a zero-padded plane, most of a diffmap's ~3,000
-torch operations (chip_smoke.py counts them; a fused kernel is open perf
-work, ROADMAP section 2).
+torch operations (a fused kernel is open perf work, ROADMAP section 2).
 
 butteraugli_diffmap_torch is the "diffmap" program (ops/programs.py), at
 the JAX package's static key (hf_asymmetry, xmul, intensity_target): on

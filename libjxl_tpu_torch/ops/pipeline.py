@@ -40,9 +40,6 @@ from . import programs
 from .dct import fwd_matrix, inv_matrix
 
 COLOR_TILE_BLOCKS = 8
-# decode_render_image's stages, in order (the names its mark hook gets)
-RENDER_STAGES = ("dequant_idct8", "size passes", "extra tiles",
-                 "true-size mirror", "render_tail")
 # the only chroma-from-luma parameters the batched path admits
 # (api/tpu_codec.prepare_batch rejects others)
 COLOR_FACTOR = 84.0
@@ -556,7 +553,7 @@ def decode_render_image(qimg, qf, dc, ytox_map, ytob_map, dm,
                         pass0_sigma_scale=0.9, pass2_sigma_scale=6.5,
                         extra_tiles=None, tile_shapes=None,
                         size_passes=None, size_shapes=None, class_map=None,
-                        true_size=None, mark=None):
+                        true_size=None):
     """The device decode on image-layout coefficients: dequant + IDCT8 of
     every block (kernels.dequant_idct8) -> the other strategies' blocks
     (render_size_passes, render_extra_tiles; torch ops) -> true-size
@@ -570,32 +567,23 @@ def decode_render_image(qimg, qf, dc, ytox_map, ytob_map, dm,
     DCT8, i + 1 = size pass i, -1 = an extra tile. extra_tiles: per-batch
     dicts of the remaining strategies, tile_shapes their (rows, cols).
     The strategy branch takes one image ([3, H, W]); the all-DCT8 form
-    also takes a batch. mark, when given, is called as mark(stage, tensor)
-    once each stage's work is queued, with every name of RENDER_STAGES in
-    order and the stage's output (a timing hook: it may record a CUDA
-    event)."""
+    also takes a batch."""
     from .kernels import dequant_idct8, render_tail
 
-    mark = mark or (lambda stage, t: None)
     xyb = dequant_idct8(qimg, qf, dc, ytox_map, ytob_map, dm,
                         inv_global_scale, x_dm_mult, b_dm_mult)
-    mark("dequant_idct8", xyb)
     if size_passes:
         xyb = render_size_passes(xyb, qimg, qf, dc, ytox_map, ytob_map,
                                  inv_global_scale, x_dm_mult, b_dm_mult,
                                  size_passes, size_shapes, class_map)
-    mark("size passes", xyb)
     if extra_tiles:
         xyb = render_extra_tiles(xyb, extra_tiles, tile_shapes, x_dm_mult,
                                  b_dm_mult, class_map)
-    mark("extra tiles", xyb)
     if true_size is not None:
         mirror_to_true_size(xyb, true_size)
-    mark("true-size mirror", xyb)
     out = render_tail(xyb, gab_kernels, inv_sigma, sad_mul, channel_scale,
                       epf_iters, pass0_sigma_scale, pass2_sigma_scale,
                       out="u8srgb" if to_rgb == "u8srgb" else "xyb")
-    mark("render_tail", out)
     if to_rgb == "u8srgb" or not to_rgb:
         return out
     return xyb_to_rgb(out)

@@ -33,13 +33,12 @@ input, as its slot: the one program reads it where the other writes it.
 Each replay adds to the launch counters (base/device.py) what its
 capture recorded.
 
-A call given a `mark` timing hook runs eagerly, fn getting mark=, as
-jax.disable_jit would: the measurement route. A call on the CPU runs fn
-directly, on the kernels' plain twins, and caches nothing. On CUDA a
-capture that fails raises; nothing falls back to an eager run. The body
-of a program may not synchronize with the host or read host memory:
-per-device constants come from constant(), data-dependent checks become
-device flags among the outputs that the caller reads after the call.
+A call on the CPU runs fn directly, on the kernels' plain twins, and
+caches nothing. On CUDA a capture that fails raises; nothing falls back
+to an eager run. The body of a program may not synchronize with the host
+or read host memory: per-device constants come from constant(),
+data-dependent checks become device flags among the outputs that the
+caller reads after the call.
 
 The cache holds CACHE_SIZE programs a device and drops the least recently
 used first, with its graph and its memory pool; it drops them also while
@@ -47,10 +46,10 @@ the device memory its captured programs hold (Program.held: input slots
 and graph pool) passes 1 / HELD_SHARE of the card's.
 
 While a torch profiler records, a call marks its host steps as spans
-(base/device.span): jxl.program.eager (an eager call, the CPU's and a
-marked call included), jxl.program.capture (the capture, with the
-cache's trim after it), jxl.program.load (the copies into the input
-slots), jxl.program.replay (the graph's launch and its launch counts) and
+(base/device.span): jxl.program.eager (an eager call, the CPU's
+included), jxl.program.capture (the capture, with the cache's trim after
+it), jxl.program.load (the copies into the input slots),
+jxl.program.replay (the graph's launch and its launch counts) and
 jxl.program.readback (the wait for the program's kernels and the copy of
 its outputs to the host). Each is on the host, outside the captured body.
 """
@@ -59,7 +58,6 @@ from __future__ import annotations
 
 import collections
 import threading
-import time
 
 import numpy as np
 import torch
@@ -182,12 +180,12 @@ def _deliver(out, readback: bool, clone: bool):
     return unflatten(spec, leaves)
 
 
-def _eager(fn, spec, inputs, device, readback: bool, **extra):
+def _eager(fn, spec, inputs, device, readback: bool):
     """fn on `inputs` put on `device`, run as it stands (no graph)."""
     with span("jxl.program.eager"):
         args, kwargs = unflatten(spec, [_on(x, device) for x in inputs])
         with torch.inference_mode():
-            out = fn(*args, **kwargs, **extra)
+            out = fn(*args, **kwargs)
         return _deliver(out, readback, clone=False)
 
 
@@ -219,7 +217,6 @@ class Program:
         self.slots = None       # the input slots, in flatten order
         self.out = None         # the graph's output tree (its pool)
         self.launches = {}      # {counter: launches} of one replay
-        self.capture_s = None   # host seconds of the capture
         self.held = 0           # device bytes of its slots and its pool
         self.lock = threading.Lock()
 
@@ -286,12 +283,10 @@ class Program:
         # program's device (a mesh drives several), whose stream is the
         # side stream (a replay launches on its capture's device itself)
         with _CAPTURE_LOCK, torch.cuda.device(self.device):
-            t = time.perf_counter()
             with recording_launches() as launches, torch.inference_mode():
                 with torch.cuda.graph(graph, stream=side,
                                       capture_error_mode="thread_local"):
                     out = self.fn(*args, **kwargs)
-            self.capture_s = time.perf_counter() - t
         leaves, _ = flatten(out)
         if not all(isinstance(t, torch.Tensor) for t in leaves):
             raise TypeError(f"program {self.name}: outputs must be tensors")
@@ -360,16 +355,14 @@ def clear(device=None) -> None:
             _CACHES.pop(torch.device(device), None)
 
 
-def run(name: str, key, fn, *args, device, mark=None, readback=False,
-        clone=True, **kwargs):
+def run(name: str, key, fn, *args, device, readback=False, clone=True,
+        **kwargs):
     """fn(*args, **kwargs) through the program (name, key) of `device`:
     see the module docstring. readback returns the outputs as numpy
     arrays; clone=False returns a replayed program's own output tensors,
     valid until its next call."""
     dev = torch.device(device)
     inputs, spec = flatten((args, kwargs))
-    if mark is not None:
-        return _eager(fn, spec, inputs, dev, readback, mark=mark)
     if dev.type == "cpu":
         return _eager(fn, spec, inputs, dev, readback)
     if dev.type != "cuda":

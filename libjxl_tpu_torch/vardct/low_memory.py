@@ -221,7 +221,7 @@ def _strip_qimg(state, gy):
 _HALO_B = 8  # block rows of device-strip halo (64 px, CfL-tile aligned)
 
 
-def _device_strip_emitter(state, fh, device, mark=None):
+def _device_strip_emitter(state, fh, device):
     """Returns emit(prev_q, cur_q, nxt_q, gy) -> u8 rows for the strip,
     rendering the haloed composite on `device` with the SAME function as
     the whole-image device decode (ops/pipeline.decode_render_image):
@@ -229,10 +229,7 @@ def _device_strip_emitter(state, fh, device, mark=None):
     Gaborish + EPF + sRGB u8 (render_tail). The 64-px halo exceeds the
     filters' 7-px reach, so the strip rows are those of the whole image.
     Each strip runs the "dec_image" program (api/tpu_codec.render_image),
-    so the strips of one shape replay one CUDA graph. mark, when given,
-    is the program body's timing hook (api/tpu_codec._image_program),
-    called also as mark("strip", None) as a strip's render begins, and
-    the strips render eagerly."""
+    so the strips of one shape replay one CUDA graph."""
     from ..api.tpu_codec import render_image
     from ..ops.staging import (block_sigma, dequant_tables, f32,
                                gab_kernels, sad_mul, to_device)
@@ -252,9 +249,6 @@ def _device_strip_emitter(state, fh, device, mark=None):
     p2 = f32(lf.epf_pass2_sigma_scale)
 
     def emit(prev_q, cur_q, nxt_q, gy):
-        if mark is not None:
-            mark("strip", None)
-
         top_b = _HALO_B if prev_q is not None else 0
         bot_b = _HALO_B if nxt_q is not None else 0
         parts = []
@@ -283,7 +277,7 @@ def _device_strip_emitter(state, fh, device, mark=None):
                   pass2_sigma_scale=p2, true_size=ts, extra_tiles=None,
                   tile_shapes=None, size_passes=None, size_shapes=None,
                   class_map=None)
-        u8 = render_image(args, kw, device, mark=mark)
+        u8 = render_image(args, kw, device)
         rows = cur_q.shape[1]
         return u8[top_b * 8:top_b * 8 + rows]
 
@@ -292,7 +286,7 @@ def _device_strip_emitter(state, fh, device, mark=None):
 
 def decode_vardct_strips(r: BitReader, fh, num_threads: int = 0,
                          device=None, reference_frames=None,
-                         reference_extra=None, mark=None):
+                         reference_extra=None):
     """Generator of (y0, strip) top to bottom: strip is either
     xyb f64[3, rows, xsize] (host render) or uint8[rows, xsize, 3]
     (device render — the strip composite runs through the same function
@@ -301,8 +295,7 @@ def decode_vardct_strips(r: BitReader, fh, num_threads: int = 0,
     device: None renders on the host; a torch device ("cuda": a missing
     card raises; "cpu": the kernels' plain twins) renders the strips of a
     stream inside the device scope there, and those of any other stream
-    on the host. mark: the device render's timing hook (see
-    _device_strip_emitter).
+    on the host.
 
     The reader must be positioned after the frame header. Unsupported
     features raise JXLError (caller falls back to decode_vardct_frame).
@@ -536,7 +529,7 @@ def decode_vardct_strips(r: BitReader, fh, num_threads: int = 0,
                                    channel_rows[gy],
                                    channel_rows.get(gy + 1))
 
-    emitter = _device_strip_emitter(state, fh, device, mark) \
+    emitter = _device_strip_emitter(state, fh, device) \
         if on_device else None
     segments_cache = None
     nrows = fd.ysize_groups

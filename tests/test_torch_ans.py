@@ -131,15 +131,8 @@ def _max_step(a, b):
 
 
 def test_decode_batch_entropy_matches_host_batch_and_jax(case):
-    stages = {}
-    imgs, info = tpu_codec.decode_batch_entropy(case.datas, "cpu",
-                                                stages=stages)
+    imgs, info = tpu_codec.decode_batch_entropy(case.datas, "cpu")
     assert info == {"path": "device_entropy"}
-    assert list(stages) == [
-        "host parse + plan + lane plan",
-        "upload of the lane plan and the render arrays", "ans_decode",
-        "place", "render", "readback"]
-    assert all(s >= 0 for s in stages.values())
     jax_imgs, jinfo = decode_tpu_batch_entropy(case.datas)
     assert jinfo["path"] == "device_entropy"
     for img, base, jimg, data in zip(

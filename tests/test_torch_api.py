@@ -15,7 +15,6 @@ import numpy as np
 import pytest
 import torch
 
-import chip_smoke
 from libjxl_tpu.api import codestream as jcs
 from libjxl_tpu.api import decoder as jdec
 from libjxl_tpu.api import encoder as jenc
@@ -181,6 +180,53 @@ def _drive(dec, data, chunks):
     return events
 
 
+def _blend_animation(frames, device):
+    """A lossy animation whose second frame blends onto the first (kAdd
+    from reference slot 1, where the first frame is saved): its frames
+    are not independent, so api/decoder.Decoder decodes it whole through
+    codestream.decode on its device. Written frame by frame as
+    codestream.encode_animation writes its kReplace frames."""
+    from libjxl_tpu_torch.api.codestream import write_codestream_header
+    from libjxl_tpu_torch.io.bits import BitWriter
+    from libjxl_tpu_torch.io.frame_header import (BLEND_ADD, CT_XYB,
+                                                  ENC_VARDCT, FT_REGULAR,
+                                                  FrameHeader)
+    from libjxl_tpu_torch.io.headers import CodecMetadata, SizeHeader
+    from libjxl_tpu_torch.ops.xyb import srgb_to_linear
+    from libjxl_tpu_torch.vardct.frame import encode_vardct_frame
+
+    h, w = frames[0].shape[:2]
+    meta = CodecMetadata()
+    meta.size = SizeHeader().set(w, h)
+    meta.m.all_default = False
+    meta.m.have_animation = True
+    writer = BitWriter()
+    write_codestream_header(writer, meta)
+    for i, frame in enumerate(frames):
+        fh = FrameHeader(meta)
+        fh.all_default = False
+        fh.frame_type = FT_REGULAR
+        fh.encoding = ENC_VARDCT
+        fh.color_transform = CT_XYB
+        fh.flags = 0
+        fh.is_last = i == len(frames) - 1
+        fh.animation_frame.nonserialized_metadata = meta
+        fh.animation_frame.duration = 1
+        if i == 0:
+            fh.save_as_reference = 1
+        else:
+            fh.blending_info.mode = BLEND_ADD
+            fh.blending_info.source = 1
+        fh.loop_filter.all_default = False
+        fh.loop_filter.gab = True
+        fh.loop_filter.epf_iters = 2
+        rgb = np.moveaxis(srgb_to_linear(frame.astype(np.float64) / 255.0),
+                          -1, 0)
+        encode_vardct_frame(writer, rgb, fh, distance=1.0, device=device)
+        writer.zero_pad_to_byte()
+    return writer.get_bytes()
+
+
 @pytest.fixture(scope="module")
 def streams():
     """The Decoder's routes: a multi-group VarDCT still (per-section
@@ -195,7 +241,7 @@ def streams():
         "lossless": tcs.encode_lossless(img),
         "progressive": tcs.encode_lossy(img, effort=3, progressive=2,
                                         device=None),
-        "blended": chip_smoke.blend_animation(
+        "blended": _blend_animation(
             [_image(256, 264, 15), _image(256, 264, 16)], device=None),
     }
 

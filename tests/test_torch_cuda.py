@@ -197,27 +197,65 @@ def _launched(fn, *args, **kw):
                  if after[k] != before.get(k, 0)}
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("shape,path", [((256, 256), "device:u8"),
-                                        ((250, 189), "device:xyb")],
-                         ids=["aligned", "true-size-crop"])
-def test_decode_on_card_matches_cpu(cuda, shape, path):
-    """The single-image render of an e5 frame (size passes and special
-    tiles): the same path record as on the CPU, u8 within one step of
-    the CPU's render (the twins), one dequant_idct8 and one render_tail
-    launch."""
+# the kernels a single-image render launches, by its path record
+PATH_KERNELS = {"device:u8": {"dequant_idct8": 1, "render_tail": 1},
+                "device:xyb": {"dequant_idct8": 1, "render_tail": 1},
+                "device:u8-ycbcr": {"render_tail": 1}}
+
+
+def _single_streams(which):
+    """(stream, the path record its decode gives) of a case: an e5 frame
+    (size passes and special tiles), aligned or cropped to a true size;
+    or each of the 23 streams of the conformance corpus, whose records
+    (the JAX package's, tests/test_torch_device_decode.py) include the
+    YCbCr render and host renders."""
+    import json
+    import pathlib
+
     from libjxl_tpu_torch.api import codestream
 
-    data = codestream.encode_lossy(_photo(*shape, 3), distance=1.0,
-                                   effort=5, device=None)
-    info, cinfo = {}, {}
-    (got, _), n = _launched(codestream.decode, data, device=cuda,
-                            decode_info=info)
-    ref, _ = codestream.decode(data, device="cpu", decode_info=cinfo)
-    assert info["path"] == cinfo["path"] == path
-    assert n == {"dequant_idct8": 1, "render_tail": 1, "ac_global_native": 1}
-    assert got.shape == ref.shape
-    assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
+    if which == "corpus":
+        corpus = pathlib.Path(__file__).resolve().parent / "data" / \
+            "conformance"
+        cases = json.loads((corpus / "manifest.json").read_text())["cases"]
+        return [((corpus / f"{c['name']}.jxl").read_bytes(), None)
+                for c in cases]
+    if which == "2048-e5":
+        # the single-image cell's frame: 64 AC groups, encoded on the card
+        return [(codestream.encode_lossy(_photo(2048, 2048, 3), distance=1.0,
+                                         effort=5, device="cuda"),
+                 "device:u8")]
+    shape, path = {"aligned": ((256, 256), "device:u8"),
+                   "true-size-crop": ((250, 189), "device:xyb")}[which]
+    return [(codestream.encode_lossy(_photo(*shape, 3), distance=1.0,
+                                     effort=5, device=None), path)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", ["aligned", "true-size-crop", "corpus",
+                                   "2048-e5"])
+def test_decode_on_card_matches_cpu(cuda, which):
+    """The single-image render: the same path record as on the CPU (an e5
+    frame's the one named; the corpus's as the CPU gives them), u8 within
+    one step of the CPU's render (the twins), the kernels of the path
+    (one dequant_idct8 and one render_tail an XYB frame, one render_tail
+    a YCbCr frame, none on the host) and, for the e5 frames, the AC
+    global section read in C."""
+    from libjxl_tpu_torch.api import codestream
+    from libjxl_tpu_torch.base.device import HOST_WORK_COUNTERS
+
+    for data, path in _single_streams(which):
+        info, cinfo = {}, {}
+        (got, _), n = _launched(codestream.decode, data, device=cuda,
+                                decode_info=info)
+        ref, _ = codestream.decode(data, device="cpu", decode_info=cinfo)
+        assert info["path"] == cinfo["path"] == (path or cinfo["path"])
+        assert {k: v for k, v in n.items() if k not in HOST_WORK_COUNTERS} \
+            == PATH_KERNELS.get(info["path"], {}), info["path"]
+        if path is not None:
+            assert n == {**PATH_KERNELS[path], "ac_global_native": 1}
+        assert got.shape == ref.shape
+        assert np.abs(got.astype(int) - ref.astype(int)).max() <= 1
 
 
 @pytest.mark.cuda
@@ -346,7 +384,7 @@ def _entropy_streams(n, seed):
 
 def _d4_lane_plan():
     """The lane plan of two 512x512 d4 streams (tests/test_ans_kernel.py's
-    generator, chip_smoke.py's small set): 8 lanes, 4 an image."""
+    generator): 8 lanes, 4 an image."""
     from libjxl_tpu_torch.api import codestream, tpu_codec
 
     datas = []
@@ -439,15 +477,78 @@ def test_ans_decode_kernel_clamps_reads_past_the_end_like_plain(cuda):
     assert torch.equal(ok, rok) and torch.equal(steps, rsteps)
 
 
+def _main_path_streams(n, seed):
+    """n distinct 2048x2048 d1/e3 streams of smooth photo-like content with
+    noise (sigma 5), the device_entropy16 cell's: 64 AC groups and 192
+    lanes each, encoded on the card."""
+    from libjxl_tpu_torch.api import codestream
+
+    rng = np.random.default_rng(seed)
+    yy, xx = np.mgrid[0:2048, 0:2048]
+    out = []
+    for _ in range(n):
+        img = (120 + 60 * np.sin(xx * 0.003) + 50 * np.cos(yy * 0.002 + 1)
+               + 20 * np.sin((xx + yy) * 0.01)
+               + rng.normal(0, 5, (2048, 2048)))
+        rgb = np.stack([img, img * 0.9 + 10, img * 1.1 - 12], axis=-1)
+        out.append(codestream.encode_lossy(
+            np.clip(rgb, 0, 255).astype(np.uint8), distance=1.0, effort=3,
+            device="cuda"))
+    return out
+
+
+def _kernels_on_staged_batch(cuda, streams):
+    """At the batch's own shapes: ans_decode + place give the host entropy
+    decode's coefficients exactly; dequant_idct8 (int16 and int32) and
+    render_tail (the stream's chain and epf=3) on its staged inputs agree
+    with their twins as at small sizes."""
+    from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.ops import ans_kernel
+
+    c, (qimg, qf, dc, ytox, ytob, igs, isg, dm, gabk, sad) = \
+        tpu_codec.prepare_batch(streams)
+    _, _, lp = tpu_codec.prepare_batch_entropy(streams)
+    tape, ok, steps = kernels.ans_decode(lp.to(cuda))
+    assert bool(ok.all())
+    placed = ans_kernel.place(tape[:int(steps.max())], lp)
+    host = _t(qimg).to(cuda, torch.int32)
+    assert placed.shape == host.shape and torch.equal(placed, host)
+    del tape, placed
+    k1_args = [_t(a).to(cuda) for a in (qf, dc, ytox, ytob, dm, igs)]
+    for q in (_t(qimg).to(cuda), host):
+        got = kernels.dequant_idct8(q, *k1_args, c.x_dm_mult, c.b_dm_mult)
+        ref = tpl.decode_xyb_image(q, *k1_args, c.x_dm_mult, c.b_dm_mult)
+        torch.testing.assert_close(got, ref, rtol=1e-5, atol=1e-5)
+        del ref
+    assert qimg.dtype == np.int16 and c.gab
+    xyb, isg, gabk, sad = got, _t(isg).to(cuda), _t(gabk).to(cuda), \
+        _t(sad).to(cuda)
+    for iters in (c.epf_iters, 3):
+        args = (xyb, gabk, isg, sad, c.channel_scale, iters,
+                c.pass0_sigma_scale, c.pass2_sigma_scale)
+        torch.testing.assert_close(kernels.render_tail(*args, out="xyb"),
+                                   tpl.render_tail_plain(*args, out="xyb"),
+                                   **chain_tol(True, iters))
+        got_u8 = kernels.render_tail(*args, out="u8srgb")
+        ref_u8 = tpl.render_tail_plain(*args, out="u8srgb")
+        assert (got_u8.int() - ref_u8.int()).abs().max().item() <= 1
+        del got_u8, ref_u8
+
+
 @pytest.mark.cuda
-def test_decode_batch_entropy_on_card_matches_cpu(cuda):
+@pytest.mark.parametrize("batch", ["2x256x512", "16x2048x2048"])
+def test_decode_batch_entropy_on_card_matches_cpu(cuda, batch):
     """The device-entropy path on the card: one ans_decode, one
     dequant_idct8 and one render_tail launch; the card's host-entropy batch
-    exactly, the CPU's within one u8 step."""
+    exactly. On two small streams, the CPU's within one u8 step; on the
+    device_entropy16 cell's batch, each kernel against its twin on the
+    batch's own inputs (the CPU decode of it would take minutes)."""
     from libjxl_tpu_torch.api import tpu_codec
     from libjxl_tpu_torch.base.device import launch_counts
 
-    streams = _entropy_streams(2, 20)
+    small = batch == "2x256x512"
+    streams = _entropy_streams(2, 20) if small else _main_path_streams(16, 21)
+    shape = (256, 512, 3) if small else (2048, 2048, 3)
     before = launch_counts()
     got, info = tpu_codec.decode_batch_entropy(streams, cuda)
     after = launch_counts()
@@ -455,12 +556,16 @@ def test_decode_batch_entropy_on_card_matches_cpu(cuda):
     assert {k: after[k] - before.get(k, 0) for k in after
             if after[k] != before.get(k, 0)} == {
         "ans_decode": 1, "dequant_idct8": 1, "render_tail": 1,
-        "ac_global_native": 2}
+        "ac_global_native": len(streams)}
+    for g, b in zip(got, tpu_codec.decode_batch(streams, cuda)):
+        assert g.shape == shape and np.array_equal(g, b)
+    if not small:
+        _kernels_on_staged_batch(cuda, streams)
+        return
     cpu, cinfo = tpu_codec.decode_batch_entropy(streams, "cpu")
     assert cinfo == {"path": "device_entropy"}
-    for g, b, c in zip(got, tpu_codec.decode_batch(streams, cuda), cpu):
-        assert g.shape == c.shape == (256, 512, 3)
-        assert np.array_equal(g, b)
+    for g, c in zip(got, cpu):
+        assert g.shape == c.shape == shape
         assert np.abs(g.astype(int) - c.astype(int)).max() <= 1
 
 
@@ -516,16 +621,26 @@ def test_glue_kernel_matches_twin(cuda):
 
 
 def _encode_arrays(img, device):
-    """encode_lossy_tpu's bytes and its step's arrays as read back."""
+    """encode_lossy_tpu's bytes and its step's arrays as read back: the
+    outputs of the "enc" program's body (tpu_codec._encode_program) that
+    programs.run delivers."""
     from libjxl_tpu_torch.api import tpu_codec
+    from libjxl_tpu_torch.ops import programs
 
     got = {}
+    run = programs.run
 
-    def mark(stage, value):
-        if stage == "readback":
-            got["arrays"] = value
+    def spy(name, *args, **kwargs):
+        out = run(name, *args, **kwargs)
+        if name == "enc":
+            got["arrays"] = out
+        return out
 
-    data = tpu_codec.encode_lossy_tpu(img, device=device, mark=mark)
+    programs.run = spy
+    try:
+        data = tpu_codec.encode_lossy_tpu(img, device=device)
+    finally:
+        programs.run = run
     return data, got["arrays"]
 
 
@@ -601,13 +716,16 @@ def test_encode_heuristics_on_card_launch_render_tail_once_a_round(
     """encode_lossy on the card at e5 (the tile costs) and e7 (with the
     butteraugli refinement): render_tail once a refinement round, as the
     trial's Gaborish + EPF, and nothing else; the stream decodes close to
-    the image."""
+    the image; at e5 it is the host encode's, byte for byte."""
     from libjxl_tpu_torch.api import codestream
 
     img = _photo(192, 224, 15)
     data, n = _launched(codestream.encode_lossy, img, distance=1.0,
                         effort=effort, device=cuda)
     assert n == ({"render_tail": rounds} if rounds else {})
+    if effort == 5:
+        assert data == codestream.encode_lossy(img, distance=1.0, effort=5,
+                                               device=None)
     out, _ = codestream.decode(data, device=None)
     assert np.abs(out.astype(int) - img.astype(int)).mean() < 6.0
 
@@ -649,12 +767,28 @@ def test_heuristics_torch_forms_on_card_match_cpu(cuda):
         assert (np.abs(got - ref) > 1e-5 * np.abs(ref)).sum() <= 1
 
 
+def _mesh_entries(cuda, cards):
+    """Four mesh entries on `cards` cards in turn: cuda:0 four times (a
+    virtual mesh), or four real cards, whose shards exchange halo rows
+    and gather between cards (skipped where the machine has fewer)."""
+    if torch.cuda.device_count() < cards:
+        pytest.skip(f"needs {cards} CUDA cards")
+    return [torch.device("cuda", i % cards) for i in range(4)]
+
+
+MESH_CARDS = pytest.mark.parametrize("cards", [1, 4],
+                                     ids=["virtual", "four-cards"])
+
+
 @pytest.mark.cuda
+@MESH_CARDS
 @pytest.mark.parametrize("epf_iters", [2, 3])
 def test_sharded_full_decode_on_a_virtual_mesh_matches_unsharded(cuda,
-                                                                 epf_iters):
+                                                                 epf_iters,
+                                                                 cards):
     """build_sharded_decode_full on a (batch 2, rows 2) mesh of four
-    entries of cuda:0 against the same builder on a 1-entry mesh and
+    entries of cuda:0 (or of four cards, the cards case) against the same
+    builder on a 1-entry mesh and
     against dequant_idct8 + render_tail + xyb_to_rgb over the whole batch:
     one launch of each kernel a shard, the kernels' rows equal wherever
     the shard sits. (Against the CPU twins the linear RGB moves by more
@@ -669,7 +803,7 @@ def test_sharded_full_decode_on_a_virtual_mesh_matches_unsharded(cuda,
     ispx = np.repeat(np.repeat(isg, 8, 1), 8, 2)
     sad = _sad_mul_map(h, w, 2.0 / 3.0).astype(np.float32)
     args = (q, qf, dc, ytox, ytob, dm, ispx, sad)
-    mesh = sharding.Mesh.of(cuda, 4, batch=2)
+    mesh = sharding.make_mesh(_mesh_entries(cuda, cards), batch=2)
     got, n = _launched(sharding.build_sharded_decode_full(
         mesh, epf_iters=epf_iters), *args)
     assert n == {"dequant_idct8": 4, "render_tail": 4}
@@ -691,21 +825,26 @@ def test_sharded_full_decode_on_a_virtual_mesh_matches_unsharded(cuda,
 
 
 @pytest.mark.cuda
-def test_sharded_stream_render_and_serving_decode_on_a_virtual_mesh(cuda):
+@MESH_CARDS
+def test_sharded_stream_render_and_serving_decode_on_a_virtual_mesh(cuda,
+                                                                    cards):
     """A real 512x512 stream rendered with its rows over 4 entries of
-    cuda:0 equals the single-device render exactly (four launches of each
-    kernel); decode_batch_sharded of 4 streams over the same mesh equals
-    decode_batch, one launch of each kernel a shard."""
+    cuda:0 (or of four cards, the cards case) equals the single-device
+    render exactly (four launches of each kernel); decode_batch_sharded
+    of 4 streams over the same mesh equals decode_batch, one launch of
+    each kernel a shard; the streaming encode with the mesh writes its
+    bytes without it, launching nothing."""
     from libjxl_tpu_torch.api import codestream, tpu_codec
     from libjxl_tpu_torch.parallel import dryrun, sharding
 
-    mesh = sharding.Mesh.of(cuda, 4)
+    mesh = sharding.make_mesh(_mesh_entries(cuda, cards))
     sr = dryrun.StreamRender.of(codestream.encode_lossy(
         dryrun.photo(512, np.random.default_rng(7)), distance=1.0,
         effort=3, device=None))
     got, n = _launched(sr.sharded(mesh), *sr.args)
     assert n == {"dequant_idct8": 4, "render_tail": 4}
     single = sr.single(cuda)
+    assert got.device == cuda
     assert torch.equal(got.permute(1, 2, 0), single)
     rng = np.random.default_rng(92)
     streams = [codestream.encode_lossy(
@@ -715,6 +854,12 @@ def test_sharded_stream_render_and_serving_decode_on_a_virtual_mesh(cuda):
     assert n == {"dequant_idct8": 4, "render_tail": 4, "ac_global_native": 4}
     for g, r in zip(outs, tpu_codec.decode_batch(streams, cuda)):
         np.testing.assert_array_equal(g, r)
+    img = _photo(320, 256, 19)
+    data, n = _launched(codestream.encode_lossy_streaming, img,
+                        distance=1.0, mesh=mesh, device=cuda)
+    assert n == {}
+    assert data == codestream.encode_lossy_streaming(img, distance=1.0,
+                                                     device=cuda)
 
 
 @pytest.mark.cuda
@@ -871,9 +1016,11 @@ def test_decode_render_blocks_on_card_equals_the_image_layout(cuda,
 
 
 @pytest.mark.cuda
-def test_sharded_block_decode_on_a_virtual_mesh_equals_unsharded(cuda):
+@MESH_CARDS
+def test_sharded_block_decode_on_a_virtual_mesh_equals_unsharded(cuda,
+                                                                 cards):
     """build_sharded_decode on a (batch 2, rows 2) mesh of four entries of
-    cuda:0 with per-tile CfL maps, each row shard two whole tiles: one
+    cuda:0 (or of four cards, the cards case) with per-tile CfL maps, each row shard two whole tiles: one
     dequant_idct8 launch a shard, equal to the same builder on a 1-entry
     mesh; the dry run's step on the same mesh."""
     from libjxl_tpu_torch.parallel import dryrun, sharding
@@ -881,7 +1028,7 @@ def test_sharded_block_decode_on_a_virtual_mesh_equals_unsharded(cuda):
     (blocks, qf, dc, ytox, ytob, dm, _), _, _, _ = _block_inputs(95, 2, 32,
                                                                  16)
     args = (blocks, qf, dc, ytox, ytob, dm)
-    mesh = sharding.Mesh.of(cuda, 4, batch=2)
+    mesh = sharding.make_mesh(_mesh_entries(cuda, cards), batch=2)
     got, n = _launched(sharding.build_sharded_decode(mesh), *args)
     assert n == {"dequant_idct8": 4}
     one, n = _launched(sharding.build_sharded_decode(
@@ -996,7 +1143,6 @@ def test_program_replay_equals_its_eager_call(cuda, name):
     fn, args = _program_cases()[name]
     prog, outs, launches = _three_calls(name, fn, *args)
     assert prog.mode == "replay" and prog.calls == 3
-    assert prog.capture_s is not None
     # what the program holds: its slots and its graph's pool
     assert prog.held >= sum(t.untyped_storage().nbytes()
                             for t in prog.slots) > 0

@@ -9,6 +9,7 @@ import textwrap
 
 import numpy as np
 import pytest
+import torch
 
 from libjxl_tpu.api import codestream
 from libjxl_tpu.api.tpu_codec import decode_tpu_batch, prepare_tpu_batch
@@ -73,14 +74,17 @@ def test_decode_batch_within_one_step_of_jax_and_host(corpus, geometry):
         assert _max_step(out, ref) <= 1
 
 
-def test_batch_from_numpy_renders_the_jax_state(corpus):
+def test_render_batch_renders_the_jax_state(corpus):
     """The JAX path's staged arguments, carried across, render what the
     port's own staging renders."""
+    from libjxl_tpu_torch.ops.staging import to_device
+
     streams, _ = corpus[(320, 264)]
     config, _ = tpu_codec.prepare_batch(streams)
     _, jargs = prepare_tpu_batch(streams)
-    renderer, inputs = tpu_codec.batch_from_numpy(jargs, config, "cpu")
-    u8 = renderer(*inputs).numpy()
+    with torch.inference_mode():
+        u8 = tpu_codec.render_batch(*to_device(tuple(jargs), "cpu"),
+                                    config=config).numpy()
     assert u8.shape == (2, 320, 264, 3)
     for a, b in zip(u8, tpu_codec.decode_batch(streams, "cpu")):
         assert np.array_equal(a, b)

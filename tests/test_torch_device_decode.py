@@ -21,7 +21,6 @@ from libjxl_tpu.api import codestream as jcs
 from libjxl_tpu.api import tpu_codec as jtc
 from libjxl_tpu_torch.api import codestream as tcs
 from libjxl_tpu_torch.api import tpu_codec as ttc
-from libjxl_tpu_torch.vardct import ac_strategy as acs
 
 CONFORMANCE = pathlib.Path(__file__).resolve().parent / "data" / \
     "conformance"
@@ -271,16 +270,9 @@ def test_staged_batches_equal_the_jax_staging():
             state.restoration_done = state.device_output_done = True
         dvf(r, fh, render_fn=capture, want_qimg=True)
         st = cap["s"]
-        if getattr(st, "qimg", None) is None:
-            # one-group streams: make_device_render's assembly
-            fd = st.fd
-            st.qimg = np.zeros((3, fd.ysize_blocks * 8, fd.xsize_blocks * 8),
-                               np.int32)
-            for (by, bx), blk in st.qblocks.items():
-                s = int(st.strategy[by, bx])
-                cx, cy = acs.COVERED_X[s], acs.COVERED_Y[s]
-                st.qimg[:, by * 8:(by + cy) * 8, bx * 8:(bx + cx) * 8] = \
-                    np.asarray(blk).reshape(3, cy * 8, cx * 8)
+        # one-group streams: the dense image from the dict, as
+        # stage_image assembles it
+        ttc._dense_qimg(st)
         staged.append(prep(st, st.qimg))
     (je, jts, jm, jsp, jss, jcm), (te, tts, tsp, tss, tcm) = staged
     assert jts == tts and jss == tss and len(je) == len(te) > 0
@@ -294,6 +286,40 @@ def test_staged_batches_equal_the_jax_staging():
         assert a.keys() == b.keys()
         for k in a:
             np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+@pytest.mark.parametrize("name", ["e5", "e7", "odd-true-size"])
+def test_dense_qimg_places_every_block(name):
+    """_dense_qimg's scatter puts each block of the per-block dict where
+    its strategy's cells lie, as a block-by-block copy does."""
+    from libjxl_tpu_torch.io.bits import BitReader
+    from libjxl_tpu_torch.io.frame_header import FrameHeader
+    from libjxl_tpu_torch.vardct import ac_strategy as acs
+    from libjxl_tpu_torch.vardct.frame import decode_vardct_frame
+
+    r = BitReader(_STREAMS[name]())
+    fh = FrameHeader(tcs.parse_codestream_header(r))
+    fh.read(r)
+    cap = {}
+
+    def capture(state):
+        cap["s"] = state
+        state.restoration_done = state.device_output_done = True
+    decode_vardct_frame(r, fh, render_fn=capture, want_qimg=True)
+    st = cap["s"]
+    assert getattr(st, "qimg", None) is None and st.qblocks
+    want = np.zeros((3, st.fd.ysize_blocks * 8, st.fd.xsize_blocks * 8),
+                    dtype=np.int32)
+    for (by, bx), blk in st.qblocks.items():
+        s = int(st.strategy[by, bx])
+        cx, cy = acs.COVERED_X[s], acs.COVERED_Y[s]
+        want[:, by * 8:(by + cy) * 8, bx * 8:(bx + cx) * 8] = \
+            np.asarray(blk).reshape(3, cy * 8, cx * 8)
+    ttc._dense_qimg(st)
+    assert st.qimg.dtype == np.int32
+    np.testing.assert_array_equal(st.qimg, want)
+    if name == "e7":
+        assert len(np.unique(st.strategy[st.is_origin])) > 1
 
 
 def test_cuda_device_without_a_card_raises():

@@ -216,17 +216,13 @@ def test_decode_render_image_strategy_branch_matches_jax():
     isg = rng.uniform(-2.5, -1.0, (nby, nbx)).astype(np.float32)
     sad = _sad_mul_map(h, w, 2.0 / 3.0).astype(np.float32)
     true_size = (h - 5, w - 3)
-    marks = []
     got = tpl.decode_render_image(
         _t(qimg), _t(qf), _t(dc), _t(ytox), _t(ytob), _t(dm), 7.5, 0.8, 1.0,
         _t(gab), _t(isg), _t(sad), CS, 2, to_rgb=False,
         extra_tiles=[{k: _t(v) for k, v in b.items()} for b in extra],
         tile_shapes=tile_shapes,
         size_passes=[{k: _t(v) for k, v in p.items()} for p in passes],
-        size_shapes=shapes, class_map=_t(class_map), true_size=true_size,
-        mark=lambda stage, t: marks.append((stage, t)))
-    assert tuple(s for s, _ in marks) == tpl.RENDER_STAGES
-    assert marks[-1][1] is got
+        size_shapes=shapes, class_map=_t(class_map), true_size=true_size)
     ref = jpl.decode_render_image(
         jnp.asarray(qimg), jnp.asarray(qf), jnp.asarray(dc),
         jnp.asarray(ytox), jnp.asarray(ytob), jnp.asarray(dm),

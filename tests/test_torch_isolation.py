@@ -1,6 +1,6 @@
-"""libjxl_tpu_torch and chip_smoke.py stand alone: no file imports the JAX
-package or JAX, at module level or inside a function, and importing every
-module of the port loads neither."""
+"""libjxl_tpu_torch stands alone: no file imports the JAX package or JAX,
+at module level or inside a function, and importing every module of the
+port loads neither."""
 
 import ast
 import pathlib
@@ -12,8 +12,7 @@ import pytest
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 FORBIDDEN = ("libjxl_tpu", "jax", "jaxlib")
-SOURCES = sorted((ROOT / "libjxl_tpu_torch").rglob("*.py")) \
-    + [ROOT / "chip_smoke.py"]
+SOURCES = sorted((ROOT / "libjxl_tpu_torch").rglob("*.py"))
 
 
 def _imports(path: pathlib.Path):

@@ -403,6 +403,4 @@ def test_wl_pallas_and_glue_refuse_other_devices(serve_plan):
     with pytest.raises(ValueError, match="device meta"):
         prof_kernel.glue(lt, torch.zeros(lp.n_lanes, dtype=torch.int32,
                                          device="meta"))
-    with pytest.raises(ValueError, match="device cpu"):
-        prof_kernel.profile_entropy([], "cpu")
     assert launch_counts() == counts

@@ -3,8 +3,8 @@
 The port's program keys equal the keys the JAX package stores in
 api/tpu_codec._BATCH_PROGS and _ENTROPY_PROGS for the same streams; calls
 through the layer on the CPU equal the direct calls of the program
-bodies; the cache is bounded and drops the least recently used; a call
-with a timing hook runs eagerly; a program's call sequence (eager,
+bodies; the cache is bounded and drops the least recently used; a
+program's call sequence (eager,
 capture, replay), its launch counting and its output delivery, with the
 CUDA graph stubbed; per-device constants are made once. The card tests
 of the same layer are in tests/test_torch_cuda.py.
@@ -83,8 +83,7 @@ def _entropy_call(streams, monkeypatch):
     class Stop(Exception):
         pass
 
-    def spy(name, key, fn, *args, device, mark=None, readback=False,
-            **kwargs):
+    def spy(name, key, fn, *args, device, readback=False, **kwargs):
         seen.append(((name, key, programs.flatten((args, kwargs))[1]),
                      args[0]))
         raise Stop
@@ -106,21 +105,6 @@ def test_entropy_batches_of_one_geometry_share_a_program(batches,
     key_b, lanes_b = _entropy_call(other, monkeypatch)
     assert key_a == key_b
     assert not np.array_equal(lanes_a["flat_hw"], lanes_b["flat_hw"])
-
-
-def test_entropy_program_equals_the_staged_route(batches):
-    """decode_batch_entropy's timed route (the program's body run eagerly
-    with its stages timed) gives the served call's images and the
-    host-entropy batch's, exactly, and times every stage."""
-    streams = batches[1]
-    got, info = tpu_codec.decode_batch_entropy(streams, "cpu")
-    stages = {}
-    staged, _ = tpu_codec.decode_batch_entropy(streams, "cpu",
-                                               stages=stages)
-    assert info == {"path": "device_entropy"}
-    assert tuple(stages) == tpu_codec.ENTROPY_STAGES
-    for g, s, h in zip(got, staged, tpu_codec.decode_batch(streams, "cpu")):
-        assert np.array_equal(g, s) and np.array_equal(g, h)
 
 
 def _program_calls():
@@ -257,13 +241,15 @@ def test_program_on_cpu_equals_the_direct_call(name):
 
 
 def test_decode_batch_on_cpu_equals_the_renderer():
-    """decode_batch's "batch" program on the CPU is BatchRenderer's
-    render of the same staged arrays."""
+    """decode_batch's "batch" program on the CPU is render_batch run
+    eagerly on the same staged arrays."""
+    from libjxl_tpu_torch.ops.staging import to_device
+
     streams = _corpus("lossy_photo_d1_e1", "lossy_photo_d1_e3")
     config, args = tpu_codec.prepare_batch(streams)
-    renderer, inputs = tpu_codec.batch_from_numpy(args, config, "cpu")
     with torch.inference_mode():
-        direct = tpu_codec._crop(config, renderer(*inputs).numpy())
+        direct = tpu_codec._crop(config, tpu_codec.render_batch(
+            *to_device(args, "cpu"), config=config).numpy())
     for got, ref in zip(tpu_codec.decode_batch(streams, "cpu"), direct):
         assert np.array_equal(got, ref)
 
@@ -373,7 +359,6 @@ def stub_capture(monkeypatch):
         with recording_launches() as launches:
             self.out = self.fn(*args, **kwargs)
         self.launches = launches
-        self.capture_s = 0.0
 
         def again():
             # a graph's replay runs no Python: its launches are counted
@@ -423,33 +408,6 @@ def test_program_is_eager_then_captured_then_replayed(stub_capture):
     programs.run("count", (), _counting_body, np.ones(3, np.float32), 3.0,
                  device=CUDA0)
     assert len(programs.programs(CUDA0)) == 2
-
-
-def test_marked_call_runs_eager(stub_capture):
-    """A call with a timing hook runs the body eagerly with mark=, and
-    touches no program; the readback route returns numpy."""
-    seen = []
-
-    def body(x, mark=None):
-        mark("stage", x)
-        return x + 1
-
-    for _ in range(3):
-        out = programs.run("marked", (), body, np.zeros(2, np.float32),
-                           device="cpu", mark=lambda s, v: seen.append(s),
-                           readback=True)
-        assert isinstance(out, np.ndarray) and out.tolist() == [1.0, 1.0]
-    assert seen == ["stage"] * 3
-    assert programs.programs(CUDA0) == []
-
-    def no_tensor_body(v, mark=None):
-        mark("stage", v)
-        return torch.tensor([v])
-
-    for _ in range(3):
-        programs.run("marked", (), no_tensor_body, 4.0, device=CUDA0,
-                     mark=lambda s, v: seen.append(s))
-    assert seen == ["stage"] * 6 and programs.programs(CUDA0) == []
 
 
 def test_recording_launches_counts_nothing():

@@ -86,7 +86,7 @@ def test_single_decode_spans_inside_its_root(streams, tmp_path):
 
 
 def _blank_entropy_program(lanes, inv_order, render_args, geometry, las,
-                           t_alloc, config, mark=None):
+                           t_alloc, config):
     """The "entropy" program's outputs, blank: the rANS twin's step loop is
     over a million torch ops, which the profiler would record one by
     one."""
